@@ -136,8 +136,13 @@ class EfficientLab(nn.Module):
 
     def forward(self, images: torch.Tensor, train: bool = True,
                 final_layer_dropout_rate: Optional[float] = None,
-                generator: Optional[torch.Generator] = None):
-        """images: [N, H, W, 3] float32 in [0, 255]."""
+                generator: Optional[torch.Generator] = None,
+                upsample: bool = True):
+        """images: [N, H, W, 3] float32 in [0, 255]. The logits are an NHWC
+        view of the NCHW resize output. With `upsample=False` the logits
+        stay NCHW at the decoder's resolution and no probabilities are
+        computed (None takes their place): a caller with many classes
+        resizes and takes its loss a piece at a time (joint/trainer.py)."""
         in_h, in_w = images.shape[1], images.shape[2]
         mean = torch.tensor(MEAN_RGB, dtype=images.dtype,
                             device=images.device)
@@ -159,6 +164,8 @@ class EfficientLab(nn.Module):
             decoded = layers.traced_dropout(generator, decoded, rate)
 
         decoded = self.final_layer_weights(decoded).float()
+        if not upsample:
+            return decoded, None
         logits = resize_bilinear_align_corners_nchw(decoded, in_h, in_w)
         logits = logits.permute(0, 2, 3, 1)
         return logits, torch.softmax(logits, dim=-1)

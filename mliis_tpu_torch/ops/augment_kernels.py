@@ -1,15 +1,25 @@
-"""`full_pass`: the meta path's six-op augmentation composition, one launch
-per batch; its CUDA kernel (csrc/full_pass.cu), the kernel's wrapper and
-launch count, and its plain PyTorch version.
+"""The augmentation kernels, each with its wrapper, launch count and plain
+PyTorch version, mirroring the TPU kernels of
+`mliis_tpu/ops/pallas_augment.py`:
 
-Replaces the TPU kernel `mliis_tpu/ops/pallas_augment.py` `full_pass`
-(`_full_pass_kernel`). The source note of csrc/full_pass.cu gives the
-design and what bounds it on the card: a rotated sample costs 3 shears x 4
-products x 2*C*H*W^2 FP32 operations (1.35 GFLOP at C=5, 224^2), an
-unrotated one only its read and write.
+- `full_pass` (csrc/full_pass.cu) replaces `full_pass`
+  (`_full_pass_kernel`): the meta path's six-op composition, one launch
+  per batch. A rotated sample costs 3 shears x 4 products x 2*C*H*W^2
+  FP32 operations (1.35 GFLOP at C=5, 224^2), an unrotated one only its
+  read and write.
+- `fused_light_augment` (csrc/light_augment.cu) replaces
+  `fused_light_augment` (`_augment_kernel`): the joint path's four-op
+  composition on NHWC images and class-id labels, one launch per
+  augmented SGD step. It is bound by its bytes; the source note gives its
+  design and its Philox counter map.
+
+Every kernel is compiled from its source under csrc/ by `nvcc` for
+sm_90a into BUILD_DIR at first use, one shared library per source, and
+bound with ctypes.
 
 Random numbers come from a counter-based Philox4x32-10 keyed by the
-per-sample seed, which the kernel and `full_pass_reference` both implement:
+per-sample seed (csrc/philox.cuh), which the kernels and the plain
+versions both implement. For `full_pass`:
   - the 20 scalar draws (at C_tot=5) sit at counters (i, 0) in the order of
     the TPU kernel's `_draw_cheap_params`;
   - the gaussian noise plane of channel c sits at (pixel, 1 + c), the
@@ -17,9 +27,9 @@ per-sample seed, which the kernel and `full_pass_reference` both implement:
     where their op runs and are never staged in device memory;
   - a uniform keeps the 23-bit-mantissa construction of the TPU kernel and
     a normal its Box-Muller.
-`full_pass_reference` also takes an injected bit source: with all-zero
-bits it reproduces the JAX interpreter's all-zero on-core PRNG, which is
-how the CPU tests hold it against the Pallas kernel.
+Both plain versions also take an injected bit source: with all-zero
+bits they reproduce the JAX interpreter's all-zero on-core PRNG, which is
+how the CPU tests hold them against the Pallas kernels.
 
 The DFT tables are cos/sin(2 pi m / n) for m < n, computed in float64 and
 indexed by (j*k) mod n, not cos of the large argument 2 pi j k / n. The
@@ -33,17 +43,21 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 NUM_OPS = 6
 ROTATE_OP = 5
+# fused_light_augment's ops, in the TPU kernel's branch order.
+LIGHT_OPS = ("translate", "fliplr", "noise", "exposure")
+TRANSLATE, FLIPLR, NOISE, EXPOSURE = range(len(LIGHT_OPS))
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "full_pass.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "_build")
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC_DIR = os.path.join(_PACKAGE, "csrc")
+KERNEL_SOURCES = ("full_pass", "light_augment")   # csrc/<name>.cu
+_HEADERS = ("philox.cuh",)
+BUILD_DIR = os.path.join(_PACKAGE, "_build")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
 # A block's shared memory on Hopper (232,448 B) less the kernel's static
@@ -323,6 +337,121 @@ def full_pass_reference(seeds: torch.Tensor, x: torch.Tensor,
     return x
 
 
+_LIGHT_DRAWS = 19   # scalar counters of csrc/light_augment.cu
+
+
+def draw_light_params(seeds: torch.Tensor, *, prob_original: float = 0.0,
+                      max_shift: int = 23, noise_mean_sd: float = 5.1,
+                      exposure_mean_sd: float = 12.75,
+                      bits: Optional[BitSource] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """The per-sample draws of `fused_light_augment`, [B] or [B, k] each, at
+    the counters of csrc/light_augment.cu's note: the gate, the op of each
+    stage (`ops` [B, 4], the rank of four exact uint32 words, ties to the
+    lower index), the prefix length `num` 1..4, and the translate, noise
+    and exposure parameters."""
+    bits = bits or philox_words
+    key = seeds.to(torch.int64)[:, None]
+    words = bits(key, torch.arange(_LIGHT_DRAWS, device=key.device)[None],
+                 0)[0]
+    u = uniform_from_bits(words)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    r = words[:, 1:5]
+    lower = torch.arange(4, device=key.device)
+    rank = ((r[:, None, :] > r[:, :, None])
+            | ((r[:, None, :] == r[:, :, None])
+               & (lower[None, :] < lower[:, None]))).sum(-1)
+    ops = torch.empty_like(rank).scatter_(1, rank, lower.expand_as(rank))
+    shift = _randint(u[:, 8], 1, max_shift + 1)
+    exp_sd = torch.abs(f32(exposure_mean_sd) + _box_muller(u[:, 15],
+                                                           u[:, 16]))
+    return {
+        "gate": u[:, 0] <= f32(prob_original),
+        "ops": ops,
+        "num": _randint(u[:, 5], 1, len(LIGHT_OPS) + 1),
+        "vert": u[:, 6] < 0.5,
+        "shift": torch.where(u[:, 7] < 0.5, shift, -shift),
+        "do_roll": u[:, 9] < 0.5,
+        "fill": u[:, 10:13] * 255.0,
+        "noise_sd": torch.abs(f32(noise_mean_sd) + _box_muller(u[:, 13],
+                                                               u[:, 14])),
+        "exp_shift": exp_sd * _box_muller(u[:, 17], u[:, 18]),
+    }
+
+
+def fused_light_augment_reference(seeds: torch.Tensor, images: torch.Tensor,
+                                  masks: torch.Tensor, *,
+                                  prob_original: float = 0.0,
+                                  max_shift: int = 23,
+                                  noise_mean_sd: float = 5.1,
+                                  exposure_mean_sd: float = 12.75,
+                                  bits: Optional[BitSource] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch `fused_light_augment`: the same function, arguments and
+    random stream as the kernel, applied op by op in stage order. `bits`
+    replaces the Philox source (e.g. `zero_bits`)."""
+    bits = bits or philox_words
+    b, h, w, c_img = images.shape
+    dev = images.device
+    key = seeds.to(dev, torch.int64)[:, None]
+    p = draw_light_params(seeds.to(dev), prob_original=prob_original,
+                          max_shift=max_shift, noise_mean_sd=noise_mean_sd,
+                          exposure_mean_sd=exposure_mean_sd, bits=bits)
+    pix = torch.arange(h * w, device=dev)[None]
+
+    def translate(img, lab, idx):
+        shift = p["shift"][idx, None]
+        vert = p["vert"][idx, None, None]
+
+        def along(n):   # source line and stripe of each output line
+            line = torch.arange(n, device=dev)[None]
+            stripe = torch.where(shift >= 0, line < shift, line >= n + shift)
+            return (line - shift) % n, stripe
+
+        src_y, stripe_y = along(h)
+        src_x, stripe_x = along(w)
+        m = img.shape[0]
+        rolled_lab = torch.where(
+            vert, torch.gather(lab, 1, src_y[:, :, None].expand(m, h, w)),
+            torch.gather(lab, 2, src_x[:, None, :].expand(m, h, w)))
+        rolled_img = torch.where(
+            vert[..., None],
+            torch.gather(img, 1, src_y[:, :, None, None].expand(m, h, w,
+                                                                c_img)),
+            torch.gather(img, 2, src_x[:, None, :, None].expand(m, h, w,
+                                                                c_img)))
+        stripe = torch.where(vert, stripe_y[:, :, None], stripe_x[:, None, :])
+        stripe = stripe & ~p["do_roll"][idx, None, None]
+        return (torch.where(stripe[..., None],
+                            p["fill"][idx, None, None, :c_img], rolled_img),
+                torch.where(stripe, torch.zeros_like(rolled_lab),
+                            rolled_lab))
+
+    def fliplr(img, lab, idx):
+        return img.flip(2), lab.flip(2)
+
+    def noise(img, lab, idx):
+        g = torch.stack([_box_muller(*(uniform_from_bits(v) for v in bits(
+            key[idx], pix, NOISE_STREAM + c))).view(-1, h, w)
+            for c in range(c_img)], dim=-1)
+        return torch.clamp(img + p["noise_sd"][idx, None, None, None] * g,
+                           0.0, 255.0), lab
+
+    def exposure(img, lab, idx):
+        return torch.clamp(img + p["exp_shift"][idx, None, None, None], 0.0,
+                           255.0), lab
+
+    fns = (translate, fliplr, noise, exposure)
+    images, masks = images.clone(), masks.clone()
+    for stage in range(len(LIGHT_OPS)):
+        active = ~p["gate"] & (p["num"] > stage)
+        for op, fn in enumerate(fns):
+            idx = torch.nonzero(active & (p["ops"][:, stage] == op))[:, 0]
+            if idx.numel():
+                images[idx], masks[idx] = fn(images[idx], masks[idx], idx)
+    return images, torch.round(masks)
+
+
 # --------------------------------------------------------------------------
 # The kernel: build, load, launch.
 # --------------------------------------------------------------------------
@@ -336,36 +465,66 @@ def _nvcc() -> str:
     return found
 
 
-def build_library(verbose: bool = False) -> Tuple[str, float, str]:
-    """Compile csrc/full_pass.cu for sm_90a into BUILD_DIR (once per source
-    digest). Returns (library path, build seconds, compiler output); 0
-    seconds when the library was already built."""
-    with open(_CSRC, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_NVCC_FLAGS).encode()
-                              ).hexdigest()[:12]
-    lib = os.path.join(BUILD_DIR, "full_pass_{}.so".format(digest))
-    if os.path.exists(lib):
-        return lib, 0.0, ""
+def _library_path(name: str) -> str:
+    """BUILD_DIR/<name>_<digest>.so, the digest over the source, the shared
+    headers and the flags."""
+    h = hashlib.sha1(" ".join(_NVCC_FLAGS).encode())
+    for fname in (name + ".cu",) + _HEADERS:
+        with open(os.path.join(_CSRC_DIR, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, "{}_{}.so".format(name, h.hexdigest()[
+        :12]))
+
+
+def build_library(names: Sequence[str] = KERNEL_SOURCES,
+                  verbose: bool = False) -> Dict[str, Tuple[str, float, str]]:
+    """Compile csrc/<name>.cu for sm_90a into BUILD_DIR, one `nvcc` per
+    source, all started together (once per digest). Returns {name: (library
+    path, build seconds, compiler output)}; 0 seconds for a library that was
+    already built."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "{}.{}.tmp".format(lib, os.getpid())
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, _CSRC]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib, time.time() - t0, proc.stdout + proc.stderr
+    jobs, out = {}, {}
+    for name in names:
+        lib = _library_path(name)
+        if os.path.exists(lib):
+            out[name] = (lib, 0.0, "")
+            continue
+        tmp = "{}.{}.tmp".format(lib, os.getpid())
+        cmd = [_nvcc(), *(("-Xptxas", "-v") if verbose else ()),
+               *_NVCC_FLAGS, "-o", tmp,
+               os.path.join(_CSRC_DIR, name + ".cu")]
+        jobs[name] = (lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (lib, tmp, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append("{}:\n{}".format(name, log))
+            continue
+        os.replace(tmp, lib)
+        out[name] = (lib, time.time() - t0, log)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_library()[0])
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.full_pass_launch.argtypes = [ptr] * 9 + [i32] * 5 + [f32] * 6 + [ptr]
-    lib.full_pass_launch.restype = i32
-    return lib
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "full_pass": [_PTR] * 9 + [_I32] * 5 + [_F32] * 6 + [_PTR],
+    "light_augment": [_PTR] * 5 + [_I32] * 4 + [_F32] * 3 + [_PTR],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _library(name: str) -> Callable:
+    """The C launch function `<name>_launch` of csrc/<name>.cu."""
+    lib = ctypes.CDLL(build_library((name,))[name][0])
+    fn = getattr(lib, name + "_launch")
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = _I32
+    return fn
 
 
 _KERNEL_WARPS = 16  # kThreads / 32 in csrc/full_pass.cu
@@ -428,20 +587,19 @@ def full_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
         return full_pass_reference(seeds, x, perm, num, rot, **kwargs)
     if x.device.type != "cuda":
         raise ValueError("full_pass runs on cuda or cpu tensors")
-    lib = _library()
+    launch = _library("full_pass")
     b, c_tot, _, n = x.shape
     out = torch.empty_like(x)
     trig = rotation_trig(rot)
     cos_tab, sin_tab = dft_tables(n, x.device)
-    f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))  # noqa: E731
     with torch.cuda.device(x.device):   # the launch goes to x's card
-        err = lib.full_pass_launch(
+        err = launch(
             x.data_ptr(), out.data_ptr(), seeds.data_ptr(), perm.data_ptr(),
             num.data_ptr(), rot.data_ptr(), trig.data_ptr(),
             cos_tab.data_ptr(), sin_tab.data_ptr(), b, c_tot, n, c_img,
-            max_shift, f32(noise_mean_sd), f32(exposure_mean_sd),
-            f32(eraser_s_l), f32(eraser_s_h - eraser_s_l), f32(eraser_r_1),
-            f32(eraser_r_2 - eraser_r_1),
+            max_shift, _f32(noise_mean_sd), _f32(exposure_mean_sd),
+            _f32(eraser_s_l), _f32(eraser_s_h - eraser_s_l),
+            _f32(eraser_r_1), _f32(eraser_r_2 - eraser_r_1),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError("full_pass kernel launch failed: cudaError {}"
@@ -451,3 +609,60 @@ def full_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
 
 
 full_pass.launches = 0
+
+
+def _f32(v: float) -> float:
+    """v rounded to float32, as the kernel's float argument holds it."""
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+def fused_light_augment(seeds: torch.Tensor, images: torch.Tensor,
+                        masks: torch.Tensor, *, prob_original: float = 0.0,
+                        max_shift: int = 23, noise_mean_sd: float = 5.1,
+                        exposure_mean_sd: float = 12.75
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch-fused light augmentation in one launch.
+
+    Args:
+      seeds: [B] int32 per-sample Philox keys.
+      images: [B, H, W, 3] contiguous float32 in [0, 255].
+      masks: [B, H, W] contiguous float32 class-id maps.
+    Returns augmented (images, masks) of the same shapes, the masks rounded
+    to integers. A CUDA tensor launches the kernel (and counts it in
+    `fused_light_augment.launches`); a CPU tensor takes the plain version;
+    any other device raises.
+    """
+    if images.dtype != torch.float32 or images.ndim != 4 \
+            or images.shape[-1] != 3 or not images.is_contiguous():
+        raise ValueError("images must be a contiguous float32 [B, H, W, 3]")
+    b, h, w, _ = images.shape
+    for name, t, shape, dtype in (("masks", masks, (b, h, w), torch.float32),
+                                  ("seeds", seeds, (b,), torch.int32)):
+        if t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != images.device:
+            raise ValueError("{} must be a contiguous {} {} on {}".format(
+                name, dtype, shape, images.device))
+    kwargs = dict(prob_original=prob_original, max_shift=max_shift,
+                  noise_mean_sd=noise_mean_sd,
+                  exposure_mean_sd=exposure_mean_sd)
+    if images.device.type == "cpu":
+        return fused_light_augment_reference(seeds, images, masks, **kwargs)
+    if images.device.type != "cuda":
+        raise ValueError("fused_light_augment runs on cuda or cpu tensors")
+    launch = _library("light_augment")
+    out_images, out_masks = torch.empty_like(images), torch.empty_like(masks)
+    with torch.cuda.device(images.device):
+        err = launch(
+            images.data_ptr(), masks.data_ptr(), out_images.data_ptr(),
+            out_masks.data_ptr(), seeds.data_ptr(), b, h, w, max_shift,
+            _f32(prob_original), _f32(noise_mean_sd),
+            _f32(exposure_mean_sd),
+            torch.cuda.current_stream(images.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("fused_light_augment kernel launch failed: "
+                           "cudaError {}".format(err))
+    fused_light_augment.launches += 1
+    return out_images, out_masks
+
+
+fused_light_augment.launches = 0

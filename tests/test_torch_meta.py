@@ -1,17 +1,17 @@
 """The port's inner loop and meta-learner against the JAX package's.
 
-A torch counterpart of tests/tiny_model.py's TinySeg carries the same
-weights as the flax one (copied from the JAX init), the batch and task
-indices come from the JAX key discipline, and augmentation and dropout are
-off, so both sides compute the same deterministic function in float32 on
-the CPU. Tolerances allow for float32 conv and reduction order only.
+The torch counterpart of tests/tiny_model.py's TinySeg
+(tests/torch_tiny_model.py) carries the same weights as the flax one
+(copied from the JAX init), the batch and task indices come from the JAX
+key discipline, and augmentation and dropout are off, so both sides
+compute the same deterministic function in float32 on the CPU. Tolerances
+allow for float32 conv and reduction order only.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.nn as nn
 
 from mliis_tpu.meta import episodes as jep
 from mliis_tpu.meta import inner_loop as jil
@@ -21,41 +21,11 @@ from mliis_tpu_torch.data.synthetic import make_synthetic_store
 from mliis_tpu_torch.meta import episodes as tep
 from mliis_tpu_torch.meta import inner_loop as til
 from mliis_tpu_torch.meta import learners as tlr
-from mliis_tpu_torch.models import layers
-from mliis_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw
 from mliis_tpu_torch.utils.checkpoint import params_from_jax
 from tests.tiny_model import TinySeg
+from tests.torch_tiny_model import TorchTinySeg
 
 IMAGE = 32
-
-
-class TorchTinySeg(nn.Module):
-    """tests/tiny_model.TinySeg in the port's layers (same names)."""
-
-    def __init__(self, features: int = 8, final_layer_dropout_rate=0.0):
-        super().__init__()
-        self.final_layer_dropout_rate = final_layer_dropout_rate
-        self.conv0 = layers.Conv2d(3, features, 3, stride=2, use_bias=False)
-        self.batch_normalization = layers.FusedBatchNorm(features)
-        self.conv1 = layers.Conv2d(features, features, 3, use_bias=False)
-        self.batch_normalization_1 = layers.FusedBatchNorm(features)
-        self.final_layer_weights = layers.Conv2d(features, 2, 1)
-
-    def forward(self, images, train=True, final_layer_dropout_rate=None,
-                generator=None):
-        x = (images / 255.0).permute(0, 3, 1, 2)
-        x = layers.swish(self.batch_normalization(self.conv0(x), train))
-        x = layers.swish(self.batch_normalization_1(self.conv1(x), train))
-        rate = final_layer_dropout_rate
-        if rate is None:
-            rate = self.final_layer_dropout_rate
-        if rate and train:
-            x = layers.traced_dropout(generator, x, rate)
-        x = resize_bilinear_align_corners_nchw(self.final_layer_weights(x),
-                                               images.shape[1],
-                                               images.shape[2])
-        logits = x.permute(0, 2, 3, 1)
-        return logits, torch.softmax(logits, dim=-1)
 
 
 def _jax_flat(state):

@@ -7,19 +7,30 @@ its phases, one line each (or a few):
   1. build: compile every mliis_tpu_torch/csrc/*.cu kernel for sm_90a, one
      `nvcc` per source, all started together.
   2. kernel: `full_pass` against `full_pass_reference` on the card at the
-     meta path's shapes (B=8, 5 x 224^2): fixed rows that run every op and
-     every rotation mode, then rows drawn as the meta path draws them.
-     Tolerances: 1e-3 abs on samples without rotation; on rotated samples
-     1e-2 abs on the image planes (0..255) and at most 1e-4 of the mask
-     pixels flipped (fg/bg ties within float32 DFT rounding). Times both
-     and computes the kernel's bound.
-  3. kernel[light_augment]: `fused_light_augment` against
+     meta path's shapes (B=8, 5 x 224^2, the plane in shared memory) and at
+     the JAX CLI's default image size (5 x 320^2, the plane in device
+     memory): fixed rows that run every op and every rotation mode, then
+     rows drawn as the meta path draws them. Tolerances: 1e-3 abs on
+     samples without rotation; on rotated samples 1e-2 abs on the image
+     planes (0..255) and at most 1e-4 of the mask pixels flipped (fg/bg
+     ties within float32 DFT rounding). Times both sizes and computes the
+     bounds.
+  3. kernel[cheap_pass]: `cheap_pass` against `cheap_pass_reference` at
+     B=8, 5 x 224^2, a non-square 5 x 160 x 224 and 5 x 320^2: fixed rows
+     covering every op, both translate modes in both directions, an empty
+     window, a rotation-only stage and the two windows around a rotation,
+     then rows drawn as the split route draws them (both windows). Image
+     planes 1e-3 abs on 0..255, mask planes exact. Times each size and
+     computes the bound.
+  4. kernel[light_augment]: `fused_light_augment` against
      `fused_light_augment_reference` at the joint path's shapes (B=64,
      224^2, prob_original 0, labels in 0..1000), with seeds that cover
      every op, prefix length and translate mode (the coverage is printed):
      labels exact, images 1e-3 abs on 0..255; prob_original 1 must be the
      identity. Times both and computes the bound.
-  4. agree: EfficientLab-b0's train-mode loss and gradients at a small
+  A kernel's `ms` is the device time of a launch, from a CUDA graph of
+  many launches (its eager, event-timed loop is printed beside it).
+  5. agree: EfficientLab-b0's train-mode loss and gradients at a small
      input (4 x 64^2, float32, no dropout) on the card and on the CPU must
      agree: loss 1e-4 rel, each param's gradient within 1e-3 of the whole
      gradient's norm.
@@ -28,22 +39,31 @@ its phases, one line each (or a few):
      `fused_light_augment` kernel, against the CPU's, through its plain
      version: loss 1e-4 rel, each param's update within 1e-3 of the whole
      update's norm.
-  5. slice: two chained FOMAML* meta-steps at bench.py's configuration
+  6. slice: two chained FOMAML* meta-steps at bench.py's configuration
      (EfficientLab-b0 rsd=(2, 4), bf16, final dropout 0.5; synthetic store
      8 tasks x 10 images at 224^2; meta-batch 5 x 59 inner steps at batch
      8, 10 shots, tail 5; bce_dice + l2; SGD lr 5e-4; meta step 0.1; aug
      rate 0.5). `full_pass` must be launched exactly 2 x 5 x 58 = 580 times
-     and the params must be finite and changed.
-  6. joint: the joint CLI, `mliis_tpu_torch.cli.joint_train.main`, at full
+     and no other kernel, and the params must be finite and changed.
+  7. eval: run.sh's evaluation protocol (`meta.evaluate.evaluate_gecko`)
+     on the committed experiments/curve_v2_r4 checkpoint over its 12
+     held-out synthetic tasks at 224^2, on the fused route and on the split
+     route (`PALLAS_FUSED_SINGLE_LAUNCH = False`): exactly 12 x 59 = 708
+     `full_pass` launches and no `cheap_pass` on the first, 2 x 708 = 1416
+     `cheap_pass` launches and no `full_pass` on the second, and on each a
+     mean IoU within 0.15 of the JAX package's (result.json), printed with
+     its 95% CI and the wall seconds a task.
+  8. joint: the joint CLI, `mliis_tpu_torch.cli.joint_train.main`, at full
      width: 1000 synthetic classes (1001 output channels, 750 train tasks
      x 10 images on the card), EfficientLab-b0 rsd=(2,) in float32, 224^2,
      batch 64, SGD + l2 + augmentation, 12 steps and 2 val batches.
-     `fused_light_augment` must be launched exactly 12 times and
-     `full_pass` not at all, the params must be finite and changed, and
-     the checkpoint must be in flax layout and read back through
-     `restore_checkpoint`. Prints the store's build seconds, steps/s over
-     the last 6 steps and the peak memory.
-Then the `kernels` JSON line, the card's name and power limit again, and
+     `fused_light_augment` must be launched exactly 12 times and no other
+     kernel, the params must be finite and changed, and the checkpoint
+     must be in flax layout and read back through `restore_checkpoint`.
+     Prints the store's build seconds, steps/s over the last 6 steps and
+     the peak memory.
+Then the `kernels` JSON line (each kernel's launches on the path it
+carries, and on every path), the card's name and power limit again, and
 the result line. Any failed phase exits non-zero, as does a run without a
 card or away from the checkout.
 """
@@ -71,6 +91,45 @@ def cuda_ms(fn, reps):
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+KERNELS = ("full_pass", "cheap_pass", "fused_light_augment")
+
+
+def reset_launches():
+    """Every kernel wrapper's launch count set to 0."""
+    from mliis_tpu_torch.ops import augment_kernels as ak
+    for name in KERNELS:
+        getattr(ak, name).launches = 0
+
+
+def read_launches():
+    """{kernel: launches since the last reset}."""
+    from mliis_tpu_torch.ops import augment_kernels as ak
+    return {name: getattr(ak, name).launches for name in KERNELS}
+
+
+def graph_ms(fn, reps):
+    """Device ms per call of `fn`: `reps` calls captured in one CUDA graph
+    and its replay timed with events, so the host's cost of a launch (the
+    wrapper's checks, ctypes) is left out."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: full_pass's cudaFuncSetAttribute is not a stream operation.
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -118,10 +177,35 @@ def _compare(name, out, ref, rotated, c_img=3):
     return max(e0, e1)
 
 
-def phase_kernel(dev):
+def _bound(bytes_moved, ops, ops_per_s):
+    """(bound ms, what binds) for the bytes at HBM3's rate and the
+    operations at `ops_per_s`."""
+    t_bytes, t_ops = bytes_moved / H100_BYTES_PER_S, ops / ops_per_s
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# Operations of one noise value (a pixel and channel) of the augmentation
+# kernels: Philox4x32-10 (10 rounds of 4 multiplies, 4 xors, 2 adds), two
+# uniforms (3 each), Box-Muller (7), the scale, add and clip (4).
+NOISE_OPS = 100 + 6 + 7 + 4
+NOISE_OP = 3  # the noise op's index in the meta kernels' permutations
+
+
+def _shear_line_ops(n):
+    """Operations of one shear of one length-n line, the least the Fourier
+    shift needs: a real-input FFT (2.5 n log2 n, half a complex one's
+    5 n log2 n), the phase product on the n/2 + 1 bins of the half
+    spectrum (6 each) and the inverse real FFT (2.5 n log2 n)."""
+    return 5 * n * math.log2(n) + 6 * (n // 2 + 1)
+
+
+def _full_pass_at(dev, size, b=8, c_tot=5):
+    """`full_pass` against its plain version at B=8, 5 x size^2: fixed rows
+    that run every op and every rotation mode, then rows drawn as the meta
+    path draws them; the times and the bound of the drawn rows."""
     import torch
     from mliis_tpu_torch.ops import augment_kernels as ak
-    b, c_tot, size = 8, 5, 224
     x = _planar_batch(dev, b, size)
     i32 = dict(dtype=torch.int32, device=dev)
     ident = [5, 0, 1, 2, 3, 4]
@@ -139,7 +223,8 @@ def phase_kernel(dev):
         pos = torch.arange(6, device=dev)[None] < num[:, None]
         return ((perm == ak.ROTATE_OP) & pos).any(1)
 
-    err = _compare("fixed", ak.full_pass(seeds, x, perm, num, rot),
+    tag = "{0}x{0}".format(size)
+    err = _compare("fixed " + tag, ak.full_pass(seeds, x, perm, num, rot),
                    ak.full_pass_reference(seeds, x, perm, num, rot),
                    rotated_of(perm, num))
     # Rows drawn as ops/augment.augment_batch draws them.
@@ -151,34 +236,157 @@ def phase_kernel(dev):
                        for lo, hi in ((-45, 45), (0, 4), (0, 2), (0, 256))],
                       1).contiguous()
     rotated = rotated_of(perm, num)
-    err = max(err, _compare("drawn", ak.full_pass(seeds, x, perm, num, rot),
+    err = max(err, _compare("drawn " + tag,
+                            ak.full_pass(seeds, x, perm, num, rot),
                             ak.full_pass_reference(seeds, x, perm, num, rot),
                             rotated))
-    ak.full_pass.launches = 0
-    kernel_ms = cuda_ms(lambda: ak.full_pass(seeds, x, perm, num, rot), 20)
+    launch = lambda: ak.full_pass(seeds, x, perm, num, rot)  # noqa: E731
+    kernel_ms = graph_ms(launch, 20)
+    eager_ms = cuda_ms(launch, 20)
     plain_ms = cuda_ms(lambda: ak.full_pass_reference(seeds, x, perm, num,
                                                       rot), 3)
     n_rot = int(rotated.sum())
+    pos = torch.arange(6, device=dev)[None] < num[:, None]
+    noised = int(((perm == NOISE_OP) & pos).any(1).sum())
     bytes_moved = 2 * x.numel() * 4 + 4 * (b + 6 * b + b + 4 * b)
-    flops = n_rot * 3 * 4 * 2 * c_tot * size * size * size
-    bound_ms = 1e3 * max(bytes_moved / H100_BYTES_PER_S,
-                         flops / H100_FP32_FLOP_PER_S)
-    bound_by = "bytes" if bytes_moved / H100_BYTES_PER_S >= \
-        flops / H100_FP32_FLOP_PER_S else "operations"
-    log("kernel: kernel_ms {:.4f} plain_ms {:.4f} bound_ms {:.5f} ({}, {} "
-        "of {} samples rotated)".format(kernel_ms, plain_ms, bound_ms,
-                                        bound_by, n_rot, b))
-    return {"name": "full_pass", "route": "cuda",
-            "source": "mliis_tpu_torch/csrc/full_pass.cu",
-            "replaces": "mliis_tpu/ops/pallas_augment.py:610",
-            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    # Three shears of every line of every plane of a rotated sample, plus
+    # the noise of the noised samples' image planes.
+    ops = n_rot * 3 * c_tot * size * _shear_line_ops(size) \
+        + noised * size * size * 3 * NOISE_OPS
+    bound_ms, bound_by = _bound(bytes_moved, ops, H100_FP32_FLOP_PER_S)
+    log("kernel {}: kernel_ms {:.4f} (eager {:.4f}) plain_ms {:.4f} bound_ms "
+        "{:.5f} ({}; {} of {} samples rotated, {} noised; {:.4g} GFLOP as "
+        "FFT shears and noise)".format(tag, kernel_ms, eager_ms, plain_ms,
+                                       bound_ms, bound_by, n_rot, b, noised,
+                                       ops / 1e9))
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-# Operations of one noise value (a pixel and channel) of `fused_light_augment`:
-# Philox4x32-10 (10 rounds of 4 multiplies, 4 xors, 2 adds), two uniforms
-# (3 each), Box-Muller (7), the scale, add and clip (4).
-LIGHT_NOISE_OPS = 100 + 6 + 7 + 4
+def phase_kernel(dev):
+    """`full_pass` at the meta path's shape (B=8, 5 x 224^2, the plane in
+    shared memory) and at the JAX CLI's default image size (5 x 320^2, the
+    plane in device memory), held to the same bars."""
+    entry = _full_pass_at(dev, 224)
+    at_320 = _full_pass_at(dev, 320)
+    entry["max_abs_err"] = max(entry["max_abs_err"], at_320["max_abs_err"])
+    return dict({"name": "full_pass", "route": "cuda",
+                 "source": "mliis_tpu_torch/csrc/full_pass.cu",
+                 "replaces": "mliis_tpu/ops/pallas_augment.py:610",
+                 "library_ms": None}, **entry)
+
+
+def _seeds_by_translate_mode(dev):
+    """{(vertical, roll): seed} for the four translate modes: seeds whose
+    `cheap_pass` draws cover vertical and horizontal rolls and stripe
+    fills (the draws that decide them do not depend on the plane size)."""
+    import torch
+    from mliis_tpu_torch.ops import augment_kernels as ak
+    cand = torch.arange(1, 200, dtype=torch.int64, device=dev)[:, None]
+    p = ak._draw_cheap_params(cand, ak.philox_words, 5, 224, 224, 23, 5.1,
+                              12.75, 0.02, 0.1, 0.3, 1 / 0.3)
+    found = {}
+    for i in range(cand.shape[0]):
+        mode = (bool(p["vert"][i]), bool(p["do_roll"][i]))
+        found.setdefault(mode, int(cand[i, 0]))
+    if len(found) < 4:
+        raise AssertionError("no seeds cover every translate mode")
+    return found
+
+
+def _cheap_rows(dev, b):
+    """Fixed `cheap_pass` rows: every op, both translate modes in both
+    directions, an empty window, a rotation-only stage, and the two
+    windows around a rotation."""
+    import torch
+    modes = _seeds_by_translate_mode(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    perm = torch.tensor([[0, 1, 2, 3, 4, 5], [1, 0, 2, 3, 4, 5],
+                         [1, 4, 3, 2, 0, 5], [4, 3, 2, 1, 0, 5],
+                         [0, 1, 2, 3, 4, 5], [5, 0, 1, 2, 3, 4],
+                         [2, 5, 3, 0, 1, 4], [2, 5, 3, 0, 1, 4]], **i32)
+    num = torch.tensor([6, 1, 6, 5, 6, 1, 6, 6], **i32)
+    window = torch.tensor([[0, 6], [0, 6], [0, 6], [0, 6], [3, 3], [0, 6],
+                           [0, 1], [2, 6]], **i32)
+    seeds = torch.tensor([modes[(True, True)], modes[(True, False)],
+                          modes[(False, True)], modes[(False, False)],
+                          11, 12, 13, 13], **i32)
+    identity = torch.tensor([False] * 4 + [True, True, False, False],
+                            device=dev)
+    return seeds[:b], perm[:b], num[:b], window[:b], identity[:b]
+
+
+def _cheap_pass_at(dev, h, w, b=8):
+    """`cheap_pass` against its plain version at B=8, 5 x h x w: the fixed
+    rows, then rows drawn as the split route draws them (both windows);
+    image planes 1e-3 abs on 0..255, mask planes exact. Returns the max
+    error, the drawn rows and the batch."""
+    import torch
+    from mliis_tpu_torch.ops import augment_kernels as ak
+    x = _planar_batch(dev, b, max(h, w))[:, :, :h, :w].contiguous()
+    seeds, perm, num, window, identity = _cheap_rows(dev, b)
+    checks = [(seeds, perm, num, window)]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    i32 = dict(dtype=torch.int32, device=dev)
+    perm_d = torch.argsort(torch.rand(b, 6, generator=gen, device=dev),
+                           1).to(torch.int32).contiguous()
+    num_d = torch.where(torch.rand(b, generator=gen, device=dev) <= 0.5, 0,
+                        torch.randint(1, 7, (b,), generator=gen, **i32))
+    seeds_d = torch.randint(0, 2 ** 31 - 1, (2, b), generator=gen, **i32)
+    rot_pos = torch.argmax((perm_d == ak.ROTATE_OP).int(), 1).int()
+    windows = (torch.stack([0 * rot_pos, rot_pos], 1),
+               torch.stack([rot_pos + 1, 0 * rot_pos + 6], 1))
+    checks += [(seeds_d[k], perm_d, num_d, windows[k]) for k in range(2)]
+    err, exact = 0.0, True
+    for i, args in enumerate(checks):
+        out = ak.cheap_pass(args[0], x, *args[1:])
+        ref = ak.cheap_pass_reference(args[0], x, *args[1:])
+        err = max(err, float((out[:, :3] - ref[:, :3]).abs().max()))
+        exact &= bool(torch.equal(out[:, 3:], ref[:, 3:]))
+        exact &= bool(out.isfinite().all())
+        if i == 0:
+            exact &= bool(torch.equal(out[identity], x[identity]))
+            changed = int((out != x).flatten(1).any(1).sum())
+    log("kernel[cheap_pass] {}x{}: max abs image {:.3g} (<= 1e-3) | masks "
+        "exact, identity rows unchanged {} | fixed rows changed {} of {} "
+        "(expect 6)".format(h, w, err, exact, changed, b))
+    if not (err <= 1e-3 and exact and changed == 6):
+        raise AssertionError("cheap_pass disagrees with its plain version")
+    return err, (seeds_d[0], perm_d, num_d, windows[0]), x
+
+
+def phase_cheap_kernel(dev):
+    """`cheap_pass` at the split route's shapes, B=8: 5 x 224^2, a
+    non-square 5 x 160 x 224 and 5 x 320^2; times the drawn rows' first
+    pass at each size and computes the bound."""
+    from mliis_tpu_torch.ops import augment_kernels as ak
+    err, entry = 0.0, None
+    for h, w in ((224, 224), (160, 224), (320, 320)):
+        e, args, x = _cheap_pass_at(dev, h, w)
+        err = max(err, e)
+        launch = lambda: ak.cheap_pass(args[0], x, *args[1:])  # noqa: E731
+        kernel_ms, eager_ms = graph_ms(launch, 50), cuda_ms(launch, 50)
+        plain_ms = cuda_ms(lambda: ak.cheap_pass_reference(
+            args[0], x, *args[1:]), 3)
+        b = x.shape[0]
+        applied = ak.cheap_applied(*args[1:])
+        noised = int((applied & (args[1] == NOISE_OP)).any(1).sum())
+        bytes_moved = 2 * x.numel() * 4 + 4 * (b + 6 * b + b + 2 * b)
+        ops = noised * h * w * 3 * NOISE_OPS
+        bound_ms, bound_by = _bound(bytes_moved, ops, H100_FP32_FLOP_PER_S)
+        log("kernel[cheap_pass] {}x{}: kernel_ms {:.4f} (eager {:.4f}) "
+            "plain_ms {:.4f} bound_ms {:.5f} ({}; {} of {} samples "
+            "noised)".format(h, w, kernel_ms, eager_ms, plain_ms, bound_ms,
+                             bound_by, noised, b))
+        if entry is None:
+            entry = {"name": "cheap_pass", "route": "cuda",
+                     "source": "mliis_tpu_torch/csrc/cheap_pass.cu",
+                     "replaces": "mliis_tpu/ops/pallas_augment.py:389",
+                     "ms": kernel_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None}
+    entry["max_abs_err"] = err
+    return entry
 
 
 def phase_light_kernel(dev):
@@ -228,19 +436,17 @@ def phase_light_kernel(dev):
             and bool(out_i.isfinite().all())):
         raise AssertionError("fused_light_augment disagrees with its plain "
                              "version")
-    kernel_ms = cuda_ms(lambda: ak.fused_light_augment(seeds, images, masks),
-                        20)
+    launch = lambda: ak.fused_light_augment(seeds, images, masks)  # noqa
+    kernel_ms, eager_ms = graph_ms(launch, 20), cuda_ms(launch, 20)
     plain_ms = cuda_ms(lambda: ak.fused_light_augment_reference(
         seeds, images, masks), 3)
     noisy = int(applied[ak.NOISE].sum())
     bytes_moved = 2 * (images.numel() + masks.numel()) * 4 + 4 * b
-    ops = noisy * size * size * 3 * LIGHT_NOISE_OPS
-    t_bytes, t_ops = bytes_moved / H100_BYTES_PER_S, ops / H100_FP32_FLOP_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log("kernel[light_augment]: kernel_ms {:.4f} plain_ms {:.4f} bound_ms "
-        "{:.5f} ({}; {} of {} samples noised)".format(
-            kernel_ms, plain_ms, bound_ms, bound_by, noisy, b))
+    ops = noisy * size * size * 3 * NOISE_OPS
+    bound_ms, bound_by = _bound(bytes_moved, ops, H100_FP32_FLOP_PER_S)
+    log("kernel[light_augment]: kernel_ms {:.4f} (eager {:.4f}) plain_ms "
+        "{:.4f} bound_ms {:.5f} ({}; {} of {} samples noised)".format(
+            kernel_ms, eager_ms, plain_ms, bound_ms, bound_by, noisy, b))
     return {"name": "fused_light_augment", "route": "cuda",
             "source": "mliis_tpu_torch/csrc/light_augment.cu",
             "replaces": "mliis_tpu/ops/pallas_augment.py:188",
@@ -348,7 +554,6 @@ def phase_slice(dev):
     from mliis_tpu_torch.meta import inner_loop as il
     from mliis_tpu_torch.meta import learners as lr
     from mliis_tpu_torch.models.efficientlab import EfficientLab
-    from mliis_tpu_torch.ops import augment_kernels as ak
     model = EfficientLab(rsd=(2, 4), final_layer_dropout_rate=0.5,
                          compute_dtype=torch.bfloat16)
     model.reset_parameters(torch.Generator().manual_seed(0))
@@ -367,8 +572,7 @@ def phase_slice(dev):
     start = {k: v.clone() for k, v in state.params.items()}
     gen = torch.Generator(device=dev).manual_seed(1)
     torch.cuda.synchronize()
-    ak.full_pass.launches = 0
-    ak.fused_light_augment.launches = 0
+    reset_launches()
     seconds = []
     for _ in range(2):
         t0 = time.time()
@@ -376,19 +580,101 @@ def phase_slice(dev):
         state = step(state, imgs, msks, draws, gen, 0.1, 5e-4)
         torch.cuda.synchronize()
         seconds.append(time.time() - t0)
-    launches = ak.full_pass.launches
-    light = ak.fused_light_augment.launches
+    launches = read_launches()
+    expect = {"full_pass": 2 * 5 * 58, "cheap_pass": 0,
+              "fused_light_augment": 0}
     finite = all(bool(v.isfinite().all()) for v in state.params.values())
     moved = sum(float((state.params[k] - start[k]).abs().sum())
                 for k in start)
-    log("slice: meta-step seconds {} | full_pass launches {} (expect 580) "
-        "| fused_light_augment launches {} (expect 0) | params finite {} | "
-        "sum |d params| {:.4g} | peak memory {:.2f} GB".format(
-            ["{:.3f}".format(s) for s in seconds], launches, light, finite,
+    log("slice: meta-step seconds {} | launches {} (expect {}) | params "
+        "finite {} | sum |d params| {:.4g} | peak memory {:.2f} GB".format(
+            ["{:.3f}".format(s) for s in seconds], launches, expect, finite,
             moved, torch.cuda.max_memory_allocated(dev) / 1e9))
-    if launches != 2 * 5 * 58 or light != 0 or not finite or not moved > 0:
+    if launches != expect or not finite or not moved > 0:
         raise AssertionError("the slice did not run as expected")
     return launches
+
+
+EVAL_CHECKPOINT = os.path.join("experiments", "curve_v2_r4",
+                               "model.ckpt-3000.npz")
+EVAL_TASKS, EVAL_STEPS = 12, 59
+EVAL_IOU_BAR = 0.15
+
+
+def phase_eval(dev):
+    """run.sh's evaluation protocol on the committed checkpoint of
+    experiments/curve_v2_r4 (EfficientLab-b0 rsd=(2, 4), bf16, final
+    dropout 0.5, meta-trained 3000 steps at 224^2) over its 12 held-out
+    tasks (triangle, ring, diamond; seed 777): 5 shots + 5 query, 59 SGD
+    steps at batch 8, lr 5e-4, bce_dice + l2, aug rate 0.5, transductive,
+    one sample; once on the fused route and once on the split route. Each
+    route's mean IoU must lie within 0.15 of the JAX package's, and the
+    kernels must be launched exactly once (fused) or twice (split) a step.
+    Returns {"eval_fused": launches, "eval_split": launches}."""
+    import torch
+    from mliis_tpu_torch.data.synthetic import make_synthetic_store
+    from mliis_tpu_torch.meta import evaluate as ev
+    from mliis_tpu_torch.meta import inner_loop as il
+    from mliis_tpu_torch.models.efficientlab import EfficientLab
+    from mliis_tpu_torch.ops import augment as taug
+    from mliis_tpu_torch.ops.metrics import ci95
+    from mliis_tpu_torch.utils.checkpoint import load_jax_npz
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "experiments", "curve_v2_r4",
+                           "result.json")) as f:
+        jax_iou = json.load(f)["final_mean_iou"]
+    model = EfficientLab(rsd=(2, 4), final_layer_dropout_rate=0.5,
+                         compute_dtype=torch.bfloat16)
+    model.load_state_dict(load_jax_npz(os.path.join(root, EVAL_CHECKPOINT)))
+    t0 = time.time()
+    store = make_synthetic_store(num_tasks=EVAL_TASKS, examples_per_task=10,
+                                 image_size=224, seed=777,
+                                 shapes=("triangle", "ring", "diamond"))
+    store_s = time.time() - t0
+    opt_cfg = il.OptimizerConfig("sgd")
+    cfg = ev.EvalConfig(num_shots=5, test_shots=5, inner_batch_size=8,
+                        inner_iters=EVAL_STEPS, transductive=True,
+                        augment=True)
+    evaluator = ev.GeckoEvaluator(model, il.LossConfig(dice=True, l2=True),
+                                  opt_cfg, cfg, store, device=dev)
+    state = il.init_model_state(model, opt_cfg)
+    counts, failed = {}, []
+    try:
+        for route, fused in (("fused", True), ("split", False)):
+            taug.PALLAS_FUSED_SINGLE_LAUNCH = fused
+            gen = torch.Generator(device=dev).manual_seed(9000)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.time()
+            mean_iou, task_map = ev.evaluate_gecko(
+                evaluator, state, gen, 5e-4, num_samples=1,
+                serially_eval_all_tasks=True, aug_rate=0.5,
+                log_fn=lambda line: log("eval[{}]: {}".format(route, line)))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = read_launches()
+            counts["eval_" + route] = launches
+            ious = [v[0] for v in task_map.values()]
+            steps = EVAL_TASKS * EVAL_STEPS
+            expect = {"full_pass": steps if fused else 0,
+                      "cheap_pass": 0 if fused else 2 * steps,
+                      "fused_light_augment": 0}
+            log("eval[{}]: {} tasks | mean IoU {:.4f} +/- {:.4f} (95% CI; "
+                "the JAX package's {:.4f}, bar {}) | wall {:.2f} s, {:.3f} s "
+                "a task | launches {} (expect {}) | task IoUs {}".format(
+                    route, len(ious), mean_iou, ci95(ious), jax_iou,
+                    EVAL_IOU_BAR, wall, wall / EVAL_TASKS, launches, expect,
+                    ["{:.3f}".format(v) for v in ious]))
+            if launches != expect or not abs(mean_iou - jax_iou) \
+                    <= EVAL_IOU_BAR:
+                failed.append(route)
+    finally:
+        taug.PALLAS_FUSED_SINGLE_LAUNCH = True
+    log("eval: held-out store built in {:.2f} s".format(store_s))
+    if failed:
+        raise AssertionError("the evaluation did not run as expected on "
+                             "the {} route".format(" and ".join(failed)))
+    return counts
 
 
 JOINT_ARGV = ["--synthetic", "--synthetic_tasks", "1000", "--image_size",
@@ -425,23 +711,22 @@ def phase_joint(dev):
     import torch
     from mliis_tpu_torch.cli import joint_train
     from mliis_tpu_torch.models.efficientlab import EfficientLab
-    from mliis_tpu_torch.ops import augment_kernels as ak
     from mliis_tpu_torch.utils import checkpoint as ckpt
     workdir = tempfile.mkdtemp(prefix="joint_smoke_")
     try:
         tee = _Tee(sys.stdout)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        ak.full_pass.launches = 0
-        ak.fused_light_augment.launches = 0
+        reset_launches()
         t0 = time.time()
         with contextlib.redirect_stdout(tee):
             state = joint_train.main(JOINT_ARGV + ["--checkpoint", workdir],
                                      device="cuda")
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = ak.fused_light_augment.launches
-        meta_launches = ak.full_pass.launches
+        launches = read_launches()
+        expect = {"full_pass": 0, "cheap_pass": 0,
+                  "fused_light_augment": JOINT_STEPS}
         peak = torch.cuda.max_memory_allocated(dev)
         out = "".join(tee.parts)
         store_s = float(re.search(r"built in ([0-9.]+) s", out).group(1))
@@ -474,15 +759,14 @@ def phase_joint(dev):
         shutil.rmtree(workdir, ignore_errors=True)
     log("joint: 1001 channels, b0 rsd=(2,), 224^2, batch 64 | store and "
         "datasets built in {:.2f} s | wall {:.2f} s | step seconds {} | "
-        "steps/s over the last 6 steps {:.3f} | fused_light_augment launches "
-        "{} (expect {}) | full_pass launches {} (expect 0) | params finite "
-        "{} | sum |d params| {:.4g} | checkpoint {} keys, flax layout {}, "
-        "reads back {} | peak memory {:.2f} GB".format(
+        "steps/s over the last 6 steps {:.3f} | launches {} (expect {}) | "
+        "params finite {} | sum |d params| {:.4g} | checkpoint {} keys, flax "
+        "layout {}, reads back {} | peak memory {:.2f} GB".format(
             store_s, wall, ["{:.4f}".format(s) for s in step_s], last6,
-            launches, JOINT_STEPS, meta_launches, finite, moved, len(keys),
-            layout, readable, peak / 1e9))
-    if not (launches == JOINT_STEPS and meta_launches == 0 and finite
-            and moved > 0 and layout and readable):
+            launches, expect, finite, moved, len(keys), layout, readable,
+            peak / 1e9))
+    if not (launches == expect and finite and moved > 0 and layout
+            and readable):
         raise AssertionError("the joint path did not run as expected")
     return launches
 
@@ -512,18 +796,26 @@ def main() -> int:
                           ).stdout.strip().splitlines()[0]
     log("card: " + card)
     phase_build()
-    entry = phase_kernel(dev)
-    light = phase_light_kernel(dev)
+    entries = [phase_kernel(dev), phase_cheap_kernel(dev),
+               phase_light_kernel(dev)]
     phase_agree(dev)
     phase_agree_joint(dev)
-    entry["launches"] = phase_slice(dev)
-    light["launches"] = phase_joint(dev)
-    for e in (entry, light):
+    by_path = {"slice": phase_slice(dev)}
+    by_path.update(phase_eval(dev))
+    by_path["joint"] = phase_joint(dev)
+    # Each kernel's `launches` is read from the path it carries: the
+    # meta-step for full_pass, the split-route evaluation for cheap_pass,
+    # the joint run for fused_light_augment; every path's counts beside.
+    main_path = {"full_pass": "slice", "cheap_pass": "eval_split",
+                 "fused_light_augment": "joint"}
+    for e in entries:
+        e["launches"] = by_path[main_path[e["name"]]][e["name"]]
+        e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(e[key]):
                 raise AssertionError("{} of {} is not finite".format(
                     key, e["name"]))
-    log(json.dumps({"kernels": [entry, light]}))
+    log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,10 +14,11 @@
 // mliis_tpu_torch/ops/augment_kernels.py; the two share the Philox stream
 // below, so on the card they see the same random numbers.
 //
-// Design (a): one block per (sample, plane), the plane resident in shared
-// memory. A whole sample (5 x 224^2 f32 = 1,003,520 B) cannot fit in a
-// block's 232,448 B, but one plane (200,704 B) can, and every op except the
-// snap acts on each plane alone: rolls, flips and stripe fills are index
+// Design (a), for a plane that fits a block's shared memory (n <= 224):
+// one block per (sample, plane), the plane resident in shared memory. A
+// whole sample (5 x 224^2 f32 = 1,003,520 B) cannot fit in a block's
+// 232,448 B, but one plane (200,704 B) can, and every op except the snap
+// acts on each plane alone: rolls, flips and stripe fills are index
 // remaps, and a shear transforms each row or column of a plane on its own.
 // The snap couples the two mask planes: they form one thread-block cluster
 // of two, and after the shears the fg-plane block reads the bg plane through
@@ -26,6 +27,14 @@
 // of 132 on the main path, against 5 x 8 = 40 here.) The sample is read once
 // and written once; nothing is staged in device memory between ops, the
 // noise planes included: they are drawn in-kernel from Philox counters.
+//
+// A larger plane (225 <= n <= 512; 320 is the JAX CLI's default image
+// size) keeps the same grid, but its block works on its (sample, plane)
+// slice of the output buffer in device memory (16.4 MB at B=8, 5 x 320^2,
+// inside the 50 MB L2) instead of shared memory, which holds only the DFT
+// tables and per-warp line buffers (64,000 B at n = 320): a shear stages
+// its line in the warp's buffer, and the snap reads the partner's bg plane
+// from the output buffer, with a fence before each cluster barrier.
 //
 // What bounds it: a rotated sample costs 3 shears x 4 products x 2*C*H*W^2
 // operations (1.35 GFLOP at C=5, 224^2), done here in FP32 on CUDA cores
@@ -36,12 +45,13 @@
 // out-of-bounds test) uses __fmul_rn/__fadd_rn so nvcc cannot contract it
 // into FMAs: it then rounds exactly as the PyTorch version's separate ops.
 // The Philox stream, the uniform and Box-Muller live in philox.cuh, shared
-// with light_augment.cu.
+// with light_augment.cu; the scalar draws, the cheap ops and the counter map
+// in cheap_ops.cuh, shared with cheap_pass.cu.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "philox.cuh"
+#include "cheap_ops.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -49,19 +59,11 @@ namespace {
 
 constexpr int kThreads = 512;  // 16 warps: the most the plane leaves room for
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPerLane = 8;  // ceil(n / 32) for n <= 256
-
-// Philox counter word 1 ("stream"): 0 for the scalar draws, 1 + c for the
-// gaussian noise plane of channel c, 64 + c for the rotation border noise.
-constexpr uint32_t kNoiseStream = 1, kRotNoiseStream = 64;
-
-struct Params {
-  int er_w, er_h, er_top, er_left;
-  float er_c;
-  int vert, shift, do_roll;
-  float fill;  // this plane's translate stripe fill (image planes)
-  float noise_sd, exp_shift;
-};
+// ceil(n / 32) for a resident plane (n <= 224) and for one in device
+// memory (n <= 512).
+constexpr int kResidentPerLane = 8, kMaxPerLane = 16;
+// A block's shared memory (232,448 B) less the static `Params` and a margin.
+constexpr int kMaxSmem = 232448 - 1024;
 
 struct Args {
   const float* x;
@@ -73,59 +75,25 @@ struct Args {
   const float* trig;     // [B, 4]: alpha, beta, cos_t, sin_t
   const float* cos_tab;  // [n]: cos(2 pi m / n)
   const float* sin_tab;  // [n]: sin(2 pi m / n)
-  int c_tot, n, c_img, max_shift;
-  float noise_mean_sd, exposure_mean_sd;
-  float er_s_l, er_s_range, er_r_1, er_r_range;
+  CheapConsts k;         // h == w == n
+  int c_img;
 };
-
-// The scalar draws, in the TPU kernel's _draw_cheap_params order, each at a
-// fixed counter.
-__device__ void draw_params(const Args& a, uint32_t key, int plane,
-                            Params* p) {
-  const int n = a.n;
-  const float er_s = __fmul_rn(
-      __fmul_rn(__fadd_rn(__fmul_rn(scalar_uniform(key, 0), a.er_s_range),
-                          a.er_s_l),
-                static_cast<float>(n)),
-      static_cast<float>(n));
-  const float er_r = __fadd_rn(__fmul_rn(scalar_uniform(key, 1),
-                                         a.er_r_range), a.er_r_1);
-  p->er_w = static_cast<int>(floorf(__fsqrt_rn(__fdiv_rn(er_s, er_r))));
-  p->er_h = static_cast<int>(floorf(__fsqrt_rn(__fmul_rn(er_s, er_r))));
-  p->er_top = randint(scalar_uniform(key, 2), 0, n);
-  p->er_left = randint(scalar_uniform(key, 3), 0, n);
-  p->er_c = __fmul_rn(scalar_uniform(key, 4), 255.0f);
-  p->vert = scalar_uniform(key, 5) < 0.5f;
-  const bool direction = scalar_uniform(key, 6) < 0.5f;
-  const int shift = randint(scalar_uniform(key, 7), 1, a.max_shift + 1);
-  p->shift = direction ? shift : -shift;
-  p->do_roll = scalar_uniform(key, 8) < 0.5f;
-  p->fill = __fmul_rn(scalar_uniform(key, 9 + plane), 255.0f);
-  const int g = 9 + a.c_tot;
-  p->noise_sd = fabsf(__fadd_rn(a.noise_mean_sd,
-                                box_muller(scalar_uniform(key, g),
-                                           scalar_uniform(key, g + 1))));
-  const float exp_sd = fabsf(__fadd_rn(
-      a.exposure_mean_sd,
-      box_muller(scalar_uniform(key, g + 2), scalar_uniform(key, g + 3))));
-  p->exp_shift = __fmul_rn(exp_sd, box_muller(scalar_uniform(key, g + 4),
-                                              scalar_uniform(key, g + 5)));
-}
 
 // One spectral shear of a length-n line (a row: stride 1, or a column:
 // stride n) held in shared memory, done by one warp: out(p) = in(p - s)
 // circularly, as real DFT -> phase exp(-2 pi i k s / n) -> inverse DFT.
 // scratch holds 2n floats.
+template <int kPerLane>
 __device__ void shear_line(float* line, int stride, int n, float s,
                            float c0, const float* cos_t, const float* sin_t,
                            float* scratch) {
   const int lane = threadIdx.x & 31;
   float* yr = scratch;
   float* yi = scratch + n;
-  float ar[kMaxPerLane], ai[kMaxPerLane];
-  int idx[kMaxPerLane];
+  float ar[kPerLane], ai[kPerLane];
+  int idx[kPerLane];
 #pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) {
+  for (int j = 0; j < kPerLane; ++j) {
     ar[j] = 0.0f;
     ai[j] = 0.0f;
     idx[j] = 0;
@@ -135,7 +103,7 @@ __device__ void shear_line(float* line, int stride, int n, float s,
   for (int w = 0; w < n; ++w) {
     const float v = line[w * stride];
 #pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
+    for (int j = 0; j < kPerLane; ++j) {
       const int k = lane + 32 * j;
       if (k < n) {
         ar[j] += v * cos_t[idx[j]];
@@ -146,7 +114,7 @@ __device__ void shear_line(float* line, int stride, int n, float s,
     }
   }
 #pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) {
+  for (int j = 0; j < kPerLane; ++j) {
     const int k = lane + 32 * j;
     if (k < n) {
       const float kf = static_cast<float>(k < (n + 1) / 2 ? k : k - n);
@@ -159,14 +127,14 @@ __device__ void shear_line(float* line, int stride, int n, float s,
   __syncwarp();
   // Inverse DFT, real part: out[p] = sum_k (yr cos - yi sin)(2 pi k p / n) / n.
 #pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) {
+  for (int j = 0; j < kPerLane; ++j) {
     ar[j] = 0.0f;
     idx[j] = 0;
   }
   for (int k = 0; k < n; ++k) {
     const float r = yr[k], i = yi[k];
 #pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
+    for (int j = 0; j < kPerLane; ++j) {
       const int p = lane + 32 * j;
       if (p < n) {
         ar[j] += r * cos_t[idx[j]] - i * sin_t[idx[j]];
@@ -177,18 +145,22 @@ __device__ void shear_line(float* line, int stride, int n, float s,
   }
   const float nf = static_cast<float>(n);
 #pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) {
+  for (int j = 0; j < kPerLane; ++j) {
     const int p = lane + 32 * j;
     if (p < n) line[p * stride] = ar[j] / nf;
   }
   __syncwarp();
 }
 
+// kResident: the plane lives in shared memory (design (a)); otherwise in
+// its slice of the output buffer.
+template <bool kResident, int kPerLane>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads)
 full_pass_kernel(Args a) {
   extern __shared__ float smem[];
-  __shared__ Params prm;
-  const int n = a.n, hw = n * n;
+  __shared__ CheapParams prm;
+  __shared__ float prm_fill;  // this plane's translate stripe fill
+  const int n = a.k.w, hw = n * n, c_tot = a.k.c_tot;
   const int b = blockIdx.y;
   // Block x -> plane: the cluster pair (0, 1) holds the bg and fg mask
   // planes, then the image planes; a padding block (odd C_tot) exits.
@@ -199,37 +171,40 @@ full_pass_kernel(Args a) {
   const bool is_mask_pair = x_idx < 2;
   const float bgv = plane == a.c_img ? 1.0f : 0.0f;  // background one-hot
 
-  float* P = smem;
-  float* cos_t = smem + hw;
+  constexpr int kLineFloats = kResident ? 2 : 3;  // per warp, in units of n
+  float* dst = a.out + (static_cast<size_t>(b) * c_tot + plane) * hw;
+  float* P = kResident ? smem : dst;
+  float* cos_t = kResident ? smem + hw : smem;
   float* sin_t = cos_t + n;
   const int warp = threadIdx.x >> 5;
-  float* scratch = sin_t + n + warp * 2 * n;
+  float* scratch = sin_t + n + warp * kLineFloats * n;
 
-  const float* src = a.x + (static_cast<size_t>(b) * a.c_tot + plane) * hw;
+  const float* src = a.x + (static_cast<size_t>(b) * c_tot + plane) * hw;
   for (int i = threadIdx.x; i < hw; i += kThreads) P[i] = src[i];
   for (int i = threadIdx.x; i < n; i += kThreads) {
     cos_t[i] = a.cos_tab[i];
     sin_t[i] = a.sin_tab[i];
   }
   const uint32_t key = static_cast<uint32_t>(a.seeds[b]);
-  if (threadIdx.x == 0) draw_params(a, key, plane, &prm);
+  if (threadIdx.x == 0) {
+    const auto u = [key](int i) { return scalar_uniform(key, i); };
+    draw_cheap_params(a.k, u, &prm);
+    prm_fill = image_fill(u, plane);
+  }
   __syncthreads();
-  const Params p = prm;
+  const CheapParams p = prm;
   const int num = a.num[b];
 
-  for (int stage = 0; stage < 6 && stage < num; ++stage) {
-    const int op = a.perm[b * 6 + stage];
-    if (op == 0) {  // eraser
+  for (int stage = 0; stage < kNumStages && stage < num; ++stage) {
+    const int op = a.perm[b * kNumStages + stage];
+    if (op == kEraser) {
       const float fill = is_img ? p.er_c : bgv;
       for (int i = threadIdx.x; i < hw; i += kThreads) {
         const int r = i / n, c = i - r * n;
-        if (r >= p.er_top && r < p.er_top + p.er_h && c >= p.er_left &&
-            c < p.er_left + p.er_w)
-          P[i] = fill;
+        if (in_eraser(p, r, c)) P[i] = fill;
       }
-    } else if (op == 1) {  // translate: roll, or roll + stripe fill
-      const float fill = is_img ? p.fill : bgv;
-      const int shift = ((p.shift % n) + n) % n;
+    } else if (op == kTranslate) {  // roll, or roll + stripe fill
+      const float fill = is_img ? prm_fill : bgv;
       for (int line = warp; line < n; line += kWarps) {
         const int stride = p.vert ? n : 1;
         float* base = p.vert ? P + line : P + line * n;
@@ -237,14 +212,14 @@ full_pass_kernel(Args a) {
           scratch[t] = base[t * stride];
         __syncwarp();
         for (int t = threadIdx.x & 31; t < n; t += 32) {
-          int from = t - shift;
-          if (from < 0) from += n;
-          const bool stripe = p.shift >= 0 ? t < p.shift : t >= n + p.shift;
-          base[t * stride] = (!p.do_roll && stripe) ? fill : scratch[from];
+          const bool stripe = in_stripe(t, p.shift, n);
+          base[t * stride] = (!p.do_roll && stripe)
+                                 ? fill
+                                 : scratch[roll_source(t, p.shift, n)];
         }
         __syncwarp();
       }
-    } else if (op == 2) {  // fliplr
+    } else if (op == kFliplr) {
       const int half = n / 2;
       for (int i = threadIdx.x; i < n * half; i += kThreads) {
         const int r = i / half, c = i - r * half;
@@ -252,22 +227,18 @@ full_pass_kernel(Args a) {
         P[r * n + c] = P[r * n + n - 1 - c];
         P[r * n + n - 1 - c] = t;
       }
-    } else if (op == 3) {  // gaussian noise on the image planes
-      if (is_img) {
-        const uint32_t stream = kNoiseStream + plane;
-        for (int i = threadIdx.x; i < hw; i += kThreads) {
-          const Words w = philox(static_cast<uint32_t>(i), stream, key);
-          const float noise = __fmul_rn(
-              p.noise_sd, box_muller(uniform(w.w0), uniform(w.w1)));
-          P[i] = fminf(fmaxf(__fadd_rn(P[i], noise), 0.0f), 255.0f);
-        }
-      }
-    } else if (op == 4) {  // exposure on the image planes
+    } else if (op == kNoise) {  // gaussian noise on the image planes
       if (is_img) {
         for (int i = threadIdx.x; i < hw; i += kThreads)
-          P[i] = fminf(fmaxf(__fadd_rn(P[i], p.exp_shift), 0.0f), 255.0f);
+          P[i] = add_noise(P[i], p.noise_sd, key, static_cast<uint32_t>(i),
+                           plane);
       }
-    } else if (op == 5) {  // rotation
+    } else if (op == kExposure) {  // exposure on the image planes
+      if (is_img) {
+        for (int i = threadIdx.x; i < hw; i += kThreads)
+          P[i] = add_exposure(P[i], p.exp_shift);
+      }
+    } else if (op == kRotate) {
       const float alpha = a.trig[b * 4 + 0], beta = a.trig[b * 4 + 1];
       const float cos_r = a.trig[b * 4 + 2], sin_r = a.trig[b * 4 + 3];
       const float ctr = (n - 1) / 2.0f;
@@ -277,8 +248,21 @@ full_pass_kernel(Args a) {
         for (int line = warp; line < n; line += kWarps) {
           const float s = __fmul_rn(rows ? alpha : beta,
                                     static_cast<float>(line) - ctr);
-          shear_line(rows ? P + line * n : P + line, rows ? 1 : n, n, s, c0,
-                     cos_t, sin_t, scratch);
+          float* ln = rows ? P + line * n : P + line;
+          const int stride = rows ? 1 : n;
+          if (kResident) {
+            shear_line<kPerLane>(ln, stride, n, s, c0, cos_t, sin_t,
+                                 scratch);
+          } else {  // stage the line in the warp's buffer
+            float* staged = scratch + 2 * n;
+            for (int t = threadIdx.x & 31; t < n; t += 32)
+              staged[t] = ln[t * stride];
+            __syncwarp();
+            shear_line<kPerLane>(staged, 1, n, s, c0, cos_t, sin_t, scratch);
+            for (int t = threadIdx.x & 31; t < n; t += 32)
+              ln[t * stride] = staged[t];
+            __syncwarp();
+          }
         }
         __syncthreads();
       }
@@ -287,15 +271,17 @@ full_pass_kernel(Args a) {
         // partner and writes both planes, so no pixel is read after it is
         // overwritten.
         cg::cluster_group cluster = cg::this_cluster();
+        if (!kResident) __threadfence();
         cluster.sync();
         if (plane == a.c_img + 1) {
-          float* bg = cluster.map_shared_rank(P, 0);
+          float* bg = kResident ? cluster.map_shared_rank(P, 0) : P - hw;
           for (int i = threadIdx.x; i < hw; i += kThreads) {
             const float fg = P[i] >= bg[i] ? 1.0f : 0.0f;
             P[i] = fg;
             bg[i] = 1.0f - fg;
           }
         }
+        if (!kResident) __threadfence();
         cluster.sync();
       }
       const int* rp = a.rot + b * 4;
@@ -330,14 +316,30 @@ full_pass_kernel(Args a) {
     __syncthreads();
   }
 
-  float* dst = a.out + (static_cast<size_t>(b) * a.c_tot + plane) * hw;
-  for (int i = threadIdx.x; i < hw; i += kThreads) dst[i] = P[i];
+  if (kResident)
+    for (int i = threadIdx.x; i < hw; i += kThreads) dst[i] = P[i];
 }
 
-// Shared memory one block needs: the plane, two tables, 2n floats a warp
-// (mirrored by `smem_bytes` in ops/augment_kernels.py).
-int smem_bytes(int n) {
+// Shared memory of one block: the resident plane, two tables and 2n floats
+// a warp; or, for a plane kept in device memory, the tables and 3n floats
+// a warp.
+int resident_smem_bytes(int n) {
   return static_cast<int>(sizeof(float)) * (n * n + 2 * n + kWarps * 2 * n);
+}
+
+int device_plane_smem_bytes(int n) {
+  return static_cast<int>(sizeof(float)) * (2 * n + kWarps * 3 * n);
+}
+
+template <bool kResident, int kPerLane>
+int launch(const Args& a, int batch, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      full_pass_kernel<kResident, kPerLane>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(a.k.c_tot + (a.k.c_tot & 1), batch);
+  full_pass_kernel<kResident, kPerLane><<<grid, kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -352,17 +354,17 @@ int full_pass_launch(const float* x, float* out, const int* seeds,
                      int c_img, int max_shift, float noise_mean_sd,
                      float exposure_mean_sd, float er_s_l, float er_s_range,
                      float er_r_1, float er_r_range, void* stream) {
-  const int smem = smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(
-      full_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Args a{x, out, seeds, perm, num, rot, trig, cos_tab, sin_tab, c_tot, n,
-         c_img, max_shift, noise_mean_sd, exposure_mean_sd, er_s_l,
-         er_s_range, er_r_1, er_r_range};
-  const dim3 grid(c_tot + (c_tot & 1), batch);
-  full_pass_kernel<<<grid, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (n > 32 * kMaxPerLane) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{x, out, seeds, perm, num, rot, trig, cos_tab, sin_tab,
+               CheapConsts{c_tot, n, n, max_shift, noise_mean_sd,
+                           exposure_mean_sd, er_s_l, er_s_range, er_r_1,
+                           er_r_range},
+               c_img};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int resident = resident_smem_bytes(n);
+  if (resident <= kMaxSmem)
+    return launch<true, kResidentPerLane>(a, batch, resident, s);
+  return launch<false, kMaxPerLane>(a, batch, device_plane_smem_bytes(n), s);
 }
 
 }  // extern "C"

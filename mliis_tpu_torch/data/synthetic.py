@@ -3,14 +3,22 @@
 A copy of the JAX package's generator: the same seed gives byte-identical
 arrays (tests/test_torch_ops.py checks it). Each synthetic "class" is a
 shape/colour family placed at random positions and scales over textured
-backgrounds, so k-shot adaptation is learnable. Only the default shape
-families are copied.
+backgrounds, so k-shot adaptation is learnable.
+
+The family list is a parameter, so meta-train and meta-test stores can use
+disjoint shape families (the stand-in for FSS-1000's class split):
+experiments/curve_v2_r4 meta-trained on five families and evaluated on
+("triangle", "ring", "diamond").
 """
+from typing import Optional, Sequence
+
 import numpy as np
 
 from mliis_tpu_torch.data.task_store import TaskStore
 
 _SHAPES = ("rect", "ellipse", "cross")
+EXTENDED_SHAPES = ("rect", "ellipse", "cross", "stripes",
+                   "triangle", "ring", "diamond", "lshape")
 
 
 def _render_shape(shape: str, yy, xx, cy, cx, ry, rx):
@@ -21,6 +29,24 @@ def _render_shape(shape: str, yy, xx, cy, cx, ry, rx):
     if shape == "cross":
         return ((np.abs(yy - cy) < 0.35 * ry) & (np.abs(xx - cx) < rx)) | \
                ((np.abs(yy - cy) < ry) & (np.abs(xx - cx) < 0.35 * rx))
+    if shape == "stripes":
+        # Three horizontal bars clipped to a rectangle.
+        bars = (np.floor((yy - cy + ry) / (2 * ry / 5.0)) % 2) == 0
+        return bars & (np.abs(yy - cy) < ry) & (np.abs(xx - cx) < rx)
+    if shape == "triangle":
+        # Isoceles triangle: |x - cx| grows linearly with distance from apex.
+        t = (yy - (cy - ry)) / (2 * ry)  # 0 at apex, 1 at base
+        return (t >= 0) & (t <= 1) & (np.abs(xx - cx) < rx * t)
+    if shape == "ring":
+        r2 = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2
+        return (r2 < 1.0) & (r2 > 0.36)
+    if shape == "diamond":
+        return (np.abs(yy - cy) / ry + np.abs(xx - cx) / rx) < 1.0
+    if shape == "lshape":
+        return ((np.abs(yy - cy) < ry) & (np.abs(xx - (cx - 0.6 * rx)) <
+                                          0.4 * rx)) | \
+               ((np.abs(yy - (cy + 0.6 * ry)) < 0.4 * ry) &
+                (np.abs(xx - cx) < rx))
     raise ValueError("unknown shape family: {}".format(shape))
 
 
@@ -44,11 +70,13 @@ def _render_example(rng: np.random.Generator, shape: str, color: np.ndarray,
 
 
 def make_synthetic_store(num_tasks: int = 16, examples_per_task: int = 10,
-                         image_size: int = 64, seed: int = 0) -> TaskStore:
+                         image_size: int = 64, seed: int = 0,
+                         shapes: Optional[Sequence[str]] = None) -> TaskStore:
+    shapes = tuple(shapes) if shapes is not None else _SHAPES
     rng = np.random.default_rng(seed)
     tasks, names = [], []
     for t in range(num_tasks):
-        shape = _SHAPES[t % len(_SHAPES)]
+        shape = shapes[t % len(shapes)]
         color = rng.uniform(100, 255, 3)
         images, masks = [], []
         for _ in range(examples_per_task):

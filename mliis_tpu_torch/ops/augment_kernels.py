@@ -7,6 +7,10 @@ PyTorch version, mirroring the TPU kernels of
   per batch. A rotated sample costs 3 shears x 4 products x 2*C*H*W^2
   FP32 operations (1.35 GFLOP at C=5, 224^2), an unrotated one only its
   read and write.
+- `cheap_pass` (csrc/cheap_pass.cu) replaces `cheap_pass`
+  (`_cheap_pass_kernel`): the split route's five cheap ops at the stages
+  of a window, any H x W, two launches per batch around the plain-op
+  rotation `rotate_shear_planar`. It is bound by its bytes.
 - `fused_light_augment` (csrc/light_augment.cu) replaces
   `fused_light_augment` (`_augment_kernel`): the joint path's four-op
   composition on NHWC images and class-id labels, one launch per
@@ -19,7 +23,8 @@ bound with ctypes.
 
 Random numbers come from a counter-based Philox4x32-10 keyed by the
 per-sample seed (csrc/philox.cuh), which the kernels and the plain
-versions both implement. For `full_pass`:
+versions both implement. For `full_pass` and `cheap_pass`
+(csrc/cheap_ops.cuh holds their shared draws and ops):
   - the 20 scalar draws (at C_tot=5) sit at counters (i, 0) in the order of
     the TPU kernel's `_draw_cheap_params`;
   - the gaussian noise plane of channel c sits at (pixel, 1 + c), the
@@ -27,7 +32,7 @@ versions both implement. For `full_pass`:
     where their op runs and are never staged in device memory;
   - a uniform keeps the 23-bit-mantissa construction of the TPU kernel and
     a normal its Box-Muller.
-Both plain versions also take an injected bit source: with all-zero
+Every plain version also takes an injected bit source: with all-zero
 bits they reproduce the JAX interpreter's all-zero on-core PRNG, which is
 how the CPU tests hold them against the Pallas kernels.
 
@@ -55,15 +60,12 @@ TRANSLATE, FLIPLR, NOISE, EXPOSURE = range(len(LIGHT_OPS))
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PACKAGE, "csrc")
-KERNEL_SOURCES = ("full_pass", "light_augment")   # csrc/<name>.cu
-_HEADERS = ("philox.cuh",)
+KERNEL_SOURCES = ("full_pass", "cheap_pass", "light_augment")  # csrc/<name>.cu
+_HEADERS = ("philox.cuh", "cheap_ops.cuh")
 BUILD_DIR = os.path.join(_PACKAGE, "_build")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
-# A block's shared memory on Hopper (232,448 B) less the kernel's static
-# `Params` and a margin.
-_MAX_SMEM = 232448 - 1024
-_MAX_N = 256  # ceil(n / 32) <= kMaxPerLane in the kernel
+MAX_FULL_PASS_N = 512  # 32 * kMaxPerLane of the non-resident kernel
 
 _MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -156,18 +158,19 @@ def rotation_trig(rot: torch.Tensor) -> torch.Tensor:
 # Plain version.
 # --------------------------------------------------------------------------
 
-def _draw_cheap_params(key, bits: BitSource, c_tot, n, max_shift,
+def _draw_cheap_params(key, bits: BitSource, c_tot, h, w, max_shift,
                        noise_mean_sd, exposure_mean_sd, eraser_s_l,
                        eraser_s_h, eraser_r_1, eraser_r_2
                        ) -> Dict[str, torch.Tensor]:
     """The scalar draws, [B] each, in `_draw_cheap_params` order at fixed
-    counters (each op rounded as the kernel rounds it)."""
+    counters (each op rounded as the kernel rounds it): the eraser's area
+    is s * H * W, its top in [0, H) and its left in [0, W)."""
     count = 9 + c_tot + 6
     u = uniform_from_bits(bits(key, torch.arange(count, device=key.device)[
         None], 0)[0])
     f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
     er_s = ((u[:, 0] * f32(eraser_s_h - eraser_s_l) + f32(eraser_s_l))
-            * float(n)) * float(n)
+            * float(h)) * float(w)
     er_r = u[:, 1] * f32(eraser_r_2 - eraser_r_1) + f32(eraser_r_1)
     shift = _randint(u[:, 7], 1, max_shift + 1)
     g = 9 + c_tot
@@ -176,8 +179,8 @@ def _draw_cheap_params(key, bits: BitSource, c_tot, n, max_shift,
     return {
         "er_w": torch.floor(torch.sqrt(er_s / er_r)).to(torch.int64),
         "er_h": torch.floor(torch.sqrt(er_s * er_r)).to(torch.int64),
-        "er_top": _randint(u[:, 2], 0, n),
-        "er_left": _randint(u[:, 3], 0, n),
+        "er_top": _randint(u[:, 2], 0, h),
+        "er_left": _randint(u[:, 3], 0, w),
         "er_c": u[:, 4] * 255.0,
         "vert": u[:, 5] < 0.5,
         "shift": torch.where(u[:, 6] < 0.5, shift, -shift),
@@ -194,11 +197,23 @@ def _fold_freqs(n: int, device) -> torch.Tensor:
     return torch.where(k < (n + 1) // 2, k, k - n).float()
 
 
-def _shear_rows(v, shifts, fr, fi):
+@functools.lru_cache(maxsize=8)
+def dft_matrices(n: int, device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Real and imaginary [n, n] DFT matrices cos / -sin(2 pi j k / n),
+    taken from `dft_tables` at (j*k) mod n."""
+    cos_tab, sin_tab = dft_tables(n, device)
+    jk = (torch.arange(n, device=device)[:, None]
+          * torch.arange(n, device=device)[None, :]) % n
+    return cos_tab[jk], -sin_tab[jk]
+
+
+def _shear_rows(v, shifts):
     """Circular shear of the last axis: out[..., q, p] = in(q, p - s[q]),
     as real DFT -> per-row phase -> inverse DFT. v [m, C, R, n], shifts
     [m, R]."""
     n = v.shape[-1]
+    fr, fi = dft_matrices(n, v.device)
     c0 = -2.0 * math.pi / n
     theta = (c0 * _fold_freqs(n, v.device))[None, None, :] \
         * shifts[:, :, None]
@@ -209,27 +224,36 @@ def _shear_rows(v, shifts, fr, fi):
     return (yr @ fr + yi @ fi) / n
 
 
-def _rotate(v, trig, rot, c_img, noise_img, fr, fi):
-    """Three-shear rotation of planar v [m, C, n, n], one-hot snap of the
-    mask planes, and the constant-mode fill from the exact coordinates."""
-    n = v.shape[-1]
-    ctr = (n - 1) / 2.0
-    lines = torch.arange(n, device=v.device, dtype=torch.float32) - ctr
+def rotate_shear_planar(v: torch.Tensor, rot: torch.Tensor, c_img: int,
+                        noise_img: torch.Tensor) -> torch.Tensor:
+    """The JAX package's `_rotate_shear_planar` on planar v [m, C, H, W]
+    (H != W allowed): the Paeth three-shear rotation by rot[:, 0] degrees
+    (a W-length DFT for the two row shears, an H-length one for the column
+    shear), the one-hot snap of the two mask planes, and in constant mode
+    (rot[:, 1] == 1) the fill outside the exact inverse-rotation
+    coordinates: noise_img [m, c_img, H, W] where rot[:, 2] == 1, else the
+    constant rot[:, 3], and background on the masks. Plain PyTorch: in the
+    JAX package it is XLA outside any kernel, and `full_pass` runs the
+    same arithmetic in-kernel."""
+    h, w = v.shape[-2:]
+    trig = rotation_trig(rot)
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    rows = torch.arange(h, device=v.device, dtype=torch.float32) - cy
+    cols = torch.arange(w, device=v.device, dtype=torch.float32) - cx
     alpha, beta = trig[:, 0:1], trig[:, 1:2]
-    v = _shear_rows(v, alpha * lines, fr, fi)
-    v = _shear_rows(v.transpose(-1, -2), beta * lines, fr, fi
-                    ).transpose(-1, -2)
-    v = _shear_rows(v, alpha * lines, fr, fi)
+    v = _shear_rows(v, alpha * rows)
+    v = _shear_rows(v.transpose(-1, -2), beta * cols).transpose(-1, -2)
+    v = _shear_rows(v, alpha * rows)
     fg = (v[:, c_img + 1] >= v[:, c_img]).float()
     v = torch.cat([v[:, :c_img], (1.0 - fg)[:, None], fg[:, None]], dim=1)
 
-    ys = lines[None, :, None]
-    xs = lines[None, None, :]
+    ys = rows[None, :, None]
+    xs = cols[None, None, :]
     cos_t, sin_t = trig[:, 2, None, None], trig[:, 3, None, None]
-    src_y = cos_t * ys - sin_t * xs + ctr
-    src_x = sin_t * ys + cos_t * xs + ctr
-    oob = ((src_y < -0.5) | (src_y > n - 0.5) | (src_x < -0.5)
-           | (src_x > n - 0.5)) & (rot[:, 1] == 1)[:, None, None]
+    src_y = cos_t * ys - sin_t * xs + cy
+    src_x = sin_t * ys + cos_t * xs + cx
+    oob = ((src_y < -0.5) | (src_y > h - 0.5) | (src_x < -0.5)
+           | (src_x > w - 0.5)) & (rot[:, 1] == 1)[:, None, None]
     cval = torch.where((rot[:, 2] == 1)[:, None, None, None], noise_img,
                        rot[:, 3].float()[:, None, None, None])
     bg = torch.zeros_like(v[:, c_img:])
@@ -238,34 +262,28 @@ def _rotate(v, trig, rot, c_img, noise_img, fr, fi):
     return torch.where(oob[:, None], fill, v)
 
 
-def full_pass_reference(seeds: torch.Tensor, x: torch.Tensor,
-                        perm: torch.Tensor, num: torch.Tensor,
-                        rot: torch.Tensor, *, c_img: int = 3,
-                        max_shift: int = 23, noise_mean_sd: float = 5.1,
-                        exposure_mean_sd: float = 12.75,
-                        eraser_s_l: float = 0.02, eraser_s_h: float = 0.10,
-                        eraser_r_1: float = 0.3,
-                        eraser_r_2: float = 1.0 / 0.3,
-                        bits: Optional[BitSource] = None) -> torch.Tensor:
-    """Plain PyTorch `full_pass`: the same function, arguments and random
-    stream as the kernel (see `full_pass`). `bits` replaces the Philox
-    source (e.g. `zero_bits`)."""
+_OP_CONSTANTS = dict(max_shift=23, noise_mean_sd=5.1, exposure_mean_sd=12.75,
+                     eraser_s_l=0.02, eraser_s_h=0.10, eraser_r_1=0.3,
+                     eraser_r_2=1.0 / 0.3)
+
+
+def _compose_reference(seeds, x, perm, applied, rot, c_img, bits, max_shift,
+                       noise_mean_sd, exposure_mean_sd, eraser_s_l,
+                       eraser_s_h, eraser_r_1, eraser_r_2):
+    """The ops of `perm` at the stages where `applied` [B, 6] holds, one
+    stage after another, with the counter map of the kernels' note. `rot`
+    is None where no rotation stage is applied (`cheap_pass`)."""
     bits = bits or philox_words
-    b, c_tot, h, n = x.shape
+    b, c_tot, h, w = x.shape
     dev = x.device
-    rot, perm, num = rot.to(dev), perm.to(dev), num.to(dev)
+    perm, applied = perm.to(dev), applied.to(dev)
     key = seeds.to(dev, torch.int64)[:, None]
-    p = _draw_cheap_params(key, bits, c_tot, n, max_shift, noise_mean_sd,
+    p = _draw_cheap_params(key, bits, c_tot, h, w, max_shift, noise_mean_sd,
                            exposure_mean_sd, eraser_s_l, eraser_s_h,
                            eraser_r_1, eraser_r_2)
-    trig = rotation_trig(rot)
-    cos_tab, sin_tab = dft_tables(n, dev)
-    jk = (torch.arange(n, device=dev)[:, None]
-          * torch.arange(n, device=dev)[None, :]) % n
-    fr, fi = cos_tab[jk], -sin_tab[jk]
-    pix = torch.arange(h * n, device=dev)[None]
+    pix = torch.arange(h * w, device=dev)[None]
     rows = torch.arange(h, device=dev)[None, :, None]
-    cols = torch.arange(n, device=dev)[None, None, :]
+    cols = torch.arange(w, device=dev)[None, None, :]
     bg_vec = torch.zeros(c_tot - c_img, device=dev)
     bg_vec[0] = 1.0
 
@@ -276,7 +294,7 @@ def full_pass_reference(seeds: torch.Tensor, x: torch.Tensor,
                          dim=1)[:, :, None, None]
 
     def noise_planes(idx, stream0, fn):
-        planes = [fn(*bits(key[idx], pix, stream0 + c)).view(-1, h, n)
+        planes = [fn(*bits(key[idx], pix, stream0 + c)).view(-1, h, w)
                   for c in range(c_img)]
         return torch.stack(planes, dim=1)
 
@@ -287,19 +305,23 @@ def full_pass_reference(seeds: torch.Tensor, x: torch.Tensor,
         return torch.where(region[:, None], fill_vec(p["er_c"][idx]), v)
 
     def translate(v, idx):
-        shift = p["shift"][idx]
+        sh = p["shift"][idx][:, None]
         vert = p["vert"][idx, None, None, None]
-        sh = shift[:, None]
-        line = torch.arange(n, device=dev)[None]
-        src = (line - sh) % n                                     # [m, n]
         m = v.shape[0]
-        rolled_h = torch.gather(v, 2, src[:, None, :, None].expand(
-            m, c_tot, h, n))
-        rolled_w = torch.gather(v, 3, src[:, None, None, :].expand(
-            m, c_tot, h, n))
-        stripe_1d = torch.where(sh >= 0, line < sh, line >= n + sh)
-        stripe = torch.where(vert[:, 0], stripe_1d[:, :, None],
-                             stripe_1d[:, None, :])
+
+        def along(n):   # source line and stripe of each output line
+            line = torch.arange(n, device=dev)[None]
+            return (line - sh) % n, torch.where(sh >= 0, line < sh,
+                                                line >= n + sh)
+
+        src_h, stripe_h = along(h)
+        src_w, stripe_w = along(w)
+        rolled_h = torch.gather(v, 2, src_h[:, None, :, None].expand(
+            m, c_tot, h, w))
+        rolled_w = torch.gather(v, 3, src_w[:, None, None, :].expand(
+            m, c_tot, h, w))
+        stripe = torch.where(vert[:, 0], stripe_h[:, :, None],
+                             stripe_w[:, None, :])
         rolled = torch.where(vert, rolled_h, rolled_w)
         filled = torch.where(stripe[:, None], fill_vec(p["img_fill"][
             idx, :c_img]), rolled)
@@ -324,17 +346,61 @@ def full_pass_reference(seeds: torch.Tensor, x: torch.Tensor,
     def rotate(v, idx):
         border = noise_planes(idx, ROT_NOISE_STREAM, lambda w0, w1: torch.floor(
             uniform_from_bits(w0) * 256.0))
-        return _rotate(v, trig[idx], rot[idx], c_img, border, fr, fi)
+        return rotate_shear_planar(v, rot[idx], c_img, border)
 
-    ops = (eraser, translate, fliplr, noise, exposure, rotate)
+    ops = (eraser, translate, fliplr, noise, exposure)
+    if rot is not None:
+        rot = rot.to(dev)
+        ops += (rotate,)
     x = x.clone()
     for stage in range(NUM_OPS):
-        active = num > stage
         for op, fn in enumerate(ops):
-            idx = torch.nonzero(active & (perm[:, stage] == op))[:, 0]
+            idx = torch.nonzero(applied[:, stage] & (perm[:, stage] == op)
+                                )[:, 0]
             if idx.numel():
                 x[idx] = fn(x[idx], idx)
     return x
+
+
+def full_pass_reference(seeds: torch.Tensor, x: torch.Tensor,
+                        perm: torch.Tensor, num: torch.Tensor,
+                        rot: torch.Tensor, *, c_img: int = 3,
+                        bits: Optional[BitSource] = None,
+                        **op_constants) -> torch.Tensor:
+    """Plain PyTorch `full_pass`: the same function, arguments and random
+    stream as the kernel (see `full_pass`), at any plane size.
+    `op_constants` are the kernel's keyword arguments (max_shift,
+    noise_mean_sd, exposure_mean_sd, eraser_s_l, eraser_s_h, eraser_r_1,
+    eraser_r_2; the TPU kernel's defaults where left out). `bits` replaces
+    the Philox source (e.g. `zero_bits`)."""
+    applied = torch.arange(NUM_OPS, device=x.device)[None] \
+        < num.to(x.device)[:, None]
+    return _compose_reference(seeds, x, perm, applied, rot, c_img, bits,
+                              **{**_OP_CONSTANTS, **op_constants})
+
+
+def cheap_applied(perm: torch.Tensor, num: torch.Tensor,
+                  window: torch.Tensor) -> torch.Tensor:
+    """[B, 6] True at the stages a `cheap_pass` applies: inside the window
+    [lo, hi), below the prefix length, and not the rotation."""
+    stage = torch.arange(NUM_OPS, device=perm.device)[None]
+    window = window.to(perm.device)
+    return ((stage >= window[:, :1]) & (stage < window[:, 1:])
+            & (stage < num.to(perm.device)[:, None]) & (perm != ROTATE_OP))
+
+
+def cheap_pass_reference(seeds: torch.Tensor, x: torch.Tensor,
+                         perm: torch.Tensor, num: torch.Tensor,
+                         window: torch.Tensor, *, c_img: int = 3,
+                         bits: Optional[BitSource] = None,
+                         **op_constants) -> torch.Tensor:
+    """Plain PyTorch `cheap_pass`: the same function, arguments and random
+    stream as the kernel (see `cheap_pass`), at any H x W; `op_constants`
+    and `bits` as for `full_pass_reference`."""
+    perm = perm.to(x.device)
+    return _compose_reference(seeds, x, perm,
+                              cheap_applied(perm, num, window), None, c_img,
+                              bits, **{**_OP_CONSTANTS, **op_constants})
 
 
 _LIGHT_DRAWS = 19   # scalar counters of csrc/light_augment.cu
@@ -513,6 +579,7 @@ def build_library(names: Sequence[str] = KERNEL_SOURCES,
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "full_pass": [_PTR] * 9 + [_I32] * 5 + [_F32] * 6 + [_PTR],
+    "cheap_pass": [_PTR] * 6 + [_I32] * 6 + [_F32] * 6 + [_PTR],
     "light_augment": [_PTR] * 5 + [_I32] * 4 + [_F32] * 3 + [_PTR],
 }
 
@@ -527,34 +594,31 @@ def _library(name: str) -> Callable:
     return fn
 
 
-_KERNEL_WARPS = 16  # kThreads / 32 in csrc/full_pass.cu
-
-
-def smem_bytes(n: int) -> int:
-    """Shared memory of one block at plane size n x n (csrc/full_pass.cu):
-    the plane, two tables and 2n floats for each warp."""
-    return 4 * (n * n + 2 * n + _KERNEL_WARPS * 2 * n)
-
-
-def _check(seeds, x, perm, num, rot, c_img):
+def _check(name, x, c_img, **index_args):
+    """The checks both planar kernels make: x a contiguous float32 [B, C,
+    H, W] with a 2-plane one-hot mask after c_img image planes; each of
+    `index_args` (name: (tensor, trailing shape)) contiguous int32 [B, ...]
+    on x's device."""
     if x.dtype != torch.float32 or x.ndim != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous float32 [B, C, H, W]")
-    b, c_tot, h, w = x.shape
-    if h != w:
-        raise ValueError("full_pass needs square planes, got {}x{}".format(
-            h, w))
+    b, c_tot = x.shape[:2]
     if c_tot - c_img != 2:
-        raise ValueError("full_pass needs a 2-channel one-hot mask")
-    for name, t, shape in (("seeds", seeds, (b,)), ("perm", perm,
-                                                    (b, NUM_OPS)),
-                           ("num", num, (b,)), ("rot", rot, (b, 4))):
+        raise ValueError("{} needs a 2-channel one-hot mask".format(name))
+    for arg, (t, trailing) in index_args.items():
+        shape = (b,) + trailing
         if t.dtype != torch.int32 or tuple(t.shape) != shape \
                 or not t.is_contiguous() or t.device != x.device:
             raise ValueError("{} must be contiguous int32 {} on {}".format(
-                name, shape, x.device))
-    if w > _MAX_N or smem_bytes(w) > _MAX_SMEM:
-        raise ValueError("a {}x{} plane does not fit one block's shared "
-                         "memory".format(h, w))
+                arg, shape, x.device))
+
+
+def _float_consts(noise_mean_sd, exposure_mean_sd, eraser_s_l, eraser_s_h,
+                  eraser_r_1, eraser_r_2):
+    """The six float op constants both planar kernels take, rounded to
+    float32 as the plain version rounds them."""
+    return (_f32(noise_mean_sd), _f32(exposure_mean_sd), _f32(eraser_s_l),
+            _f32(eraser_s_h - eraser_s_l), _f32(eraser_r_1),
+            _f32(eraser_r_2 - eraser_r_1))
 
 
 def full_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
@@ -567,8 +631,8 @@ def full_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
 
     Args:
       seeds: [B] int32 per-sample Philox keys.
-      x: [B, C_tot, H, W] float32 planar image + one-hot mask batch, H == W,
-        C_tot - c_img == 2.
+      x: [B, C_tot, H, W] float32 planar image + one-hot mask batch, H == W
+        (at most MAX_FULL_PASS_N on the card), C_tot - c_img == 2.
       perm: [B, 6] int32 op permutation (0 eraser, 1 translate, 2 fliplr,
         3 noise, 4 exposure, 5 rotation).
       num: [B] int32 prefix length.
@@ -577,18 +641,25 @@ def full_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
     counts it in `full_pass.launches`); a CPU tensor takes the plain
     version; any other device raises.
     """
-    _check(seeds, x, perm, num, rot, c_img)
-    kwargs = dict(c_img=c_img, max_shift=max_shift,
-                  noise_mean_sd=noise_mean_sd,
+    _check("full_pass", x, c_img, seeds=(seeds, ()), perm=(perm, (NUM_OPS,)),
+           num=(num, ()), rot=(rot, (4,)))
+    b, c_tot, h, n = x.shape
+    if h != n:
+        raise ValueError("full_pass needs square planes, got {}x{}".format(
+            h, n))
+    floats = dict(noise_mean_sd=noise_mean_sd,
                   exposure_mean_sd=exposure_mean_sd, eraser_s_l=eraser_s_l,
                   eraser_s_h=eraser_s_h, eraser_r_1=eraser_r_1,
                   eraser_r_2=eraser_r_2)
     if x.device.type == "cpu":
-        return full_pass_reference(seeds, x, perm, num, rot, **kwargs)
+        return full_pass_reference(seeds, x, perm, num, rot, c_img=c_img,
+                                   max_shift=max_shift, **floats)
     if x.device.type != "cuda":
         raise ValueError("full_pass runs on cuda or cpu tensors")
+    if n > MAX_FULL_PASS_N:
+        raise ValueError("full_pass takes planes up to {0}x{0} on the card, "
+                         "got {1}x{1}".format(MAX_FULL_PASS_N, n))
     launch = _library("full_pass")
-    b, c_tot, _, n = x.shape
     out = torch.empty_like(x)
     trig = rotation_trig(rot)
     cos_tab, sin_tab = dft_tables(n, x.device)
@@ -597,9 +668,7 @@ def full_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
             x.data_ptr(), out.data_ptr(), seeds.data_ptr(), perm.data_ptr(),
             num.data_ptr(), rot.data_ptr(), trig.data_ptr(),
             cos_tab.data_ptr(), sin_tab.data_ptr(), b, c_tot, n, c_img,
-            max_shift, _f32(noise_mean_sd), _f32(exposure_mean_sd),
-            _f32(eraser_s_l), _f32(eraser_s_h - eraser_s_l),
-            _f32(eraser_r_1), _f32(eraser_r_2 - eraser_r_1),
+            max_shift, *_float_consts(**floats),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError("full_pass kernel launch failed: cudaError {}"
@@ -609,6 +678,62 @@ def full_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
 
 
 full_pass.launches = 0
+
+_MAX_IMG_PLANES = 8  # kMaxImg in csrc/cheap_pass.cu
+
+
+def cheap_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
+               num: torch.Tensor, window: torch.Tensor, *, c_img: int = 3,
+               max_shift: int = 23, noise_mean_sd: float = 5.1,
+               exposure_mean_sd: float = 12.75, eraser_s_l: float = 0.02,
+               eraser_s_h: float = 0.10, eraser_r_1: float = 0.3,
+               eraser_r_2: float = 1.0 / 0.3) -> torch.Tensor:
+    """The five cheap ops at the stages of a window, in one launch.
+
+    Args:
+      seeds: [B] int32 per-sample Philox keys.
+      x: [B, C_tot, H, W] float32 planar image + one-hot mask batch (any H,
+        W), C_tot - c_img == 2, c_img <= 8.
+      perm: [B, 6] int32 op permutation, as for `full_pass`; the rotation
+        stage (op 5) is skipped.
+      num: [B] int32 prefix length.
+      window: [B, 2] int32 [lo, hi): the stages this pass applies.
+    Returns the transformed batch. A CUDA tensor launches the kernel (and
+    counts it in `cheap_pass.launches`); a CPU tensor takes the plain
+    version; any other device raises.
+    """
+    _check("cheap_pass", x, c_img, seeds=(seeds, ()),
+           perm=(perm, (NUM_OPS,)), num=(num, ()), window=(window, (2,)))
+    if c_img > _MAX_IMG_PLANES:
+        raise ValueError("cheap_pass takes at most {} image planes".format(
+            _MAX_IMG_PLANES))
+    floats = dict(noise_mean_sd=noise_mean_sd,
+                  exposure_mean_sd=exposure_mean_sd, eraser_s_l=eraser_s_l,
+                  eraser_s_h=eraser_s_h, eraser_r_1=eraser_r_1,
+                  eraser_r_2=eraser_r_2)
+    if x.device.type == "cpu":
+        return cheap_pass_reference(seeds, x, perm, num, window,
+                                    c_img=c_img, max_shift=max_shift,
+                                    **floats)
+    if x.device.type != "cuda":
+        raise ValueError("cheap_pass runs on cuda or cpu tensors")
+    launch = _library("cheap_pass")
+    out = torch.empty_like(x)
+    b, c_tot, h, w = x.shape
+    with torch.cuda.device(x.device):
+        err = launch(
+            x.data_ptr(), out.data_ptr(), seeds.data_ptr(), perm.data_ptr(),
+            num.data_ptr(), window.data_ptr(), b, c_tot, h, w, c_img,
+            max_shift, *_float_consts(**floats),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("cheap_pass kernel launch failed: cudaError {}"
+                           .format(err))
+    cheap_pass.launches += 1
+    return out
+
+
+cheap_pass.launches = 0
 
 
 def _f32(v: float) -> float:

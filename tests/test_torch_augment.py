@@ -21,6 +21,7 @@ from mliis_tpu_torch.ops import augment as taug
 from mliis_tpu_torch.ops import augment_kernels as tk
 
 C_IMG = 3
+ROTATE = 5
 
 
 def _planar_batch(rng, b=2, h=32, w=32):
@@ -133,11 +134,39 @@ def test_wrapper_checks_inputs():
         tk.full_pass(seeds, torch.zeros(2, 6, 32, 32), perm, nums, rot)
     with pytest.raises(ValueError):
         tk.full_pass(seeds.long(), x, perm, nums, rot)
-    with pytest.raises(ValueError):
-        tk.full_pass(seeds, torch.zeros(2, 5, 320, 320), perm, nums, rot)
     before = tk.full_pass.launches
     out = tk.full_pass(seeds, x, perm, nums, rot)
     assert out.shape == x.shape and tk.full_pass.launches == before
+    # The plain version takes any square size: 320^2 no longer raises.
+    big = torch.zeros(2, 5, 320, 320)
+    assert tk.full_pass(seeds, big, perm, nums, rot).shape == big.shape
+
+
+@pytest.mark.parametrize("n", [256, 320])
+@pytest.mark.parametrize("perm_row,num,rot_row", [
+    ([4, 3, 2, 1, 0, 5], 5, (0, 0, 0, 0)),     # every cheap op
+    ([0, 1, 5, 2, 3, 4], 6, (17, 2, 0, 0)),    # every op, mirror mode
+    ([5, 0, 1, 2, 3, 4], 1, (44, 1, 0, 7)),    # constant mode, cval 7
+], ids=["cheap_ops", "all_ops", "constant_mode"])
+def test_planes_past_224_match_pallas(rng, n, perm_row, num, rot_row):
+    """Planes larger than one block's shared memory holds (csrc/full_pass.cu
+    keeps them in device memory) against the Pallas kernel, with the 32^2
+    cases' bars: the cheap ops 1e-4 abs; rotated image planes 5e-2 abs on
+    0..255 (the zero-angle case's bar: the Pallas kernel's float32
+    large-argument DFT matrices; 2.8e-2 seen at 320^2), and the masks one-hot
+    with at most 1e-4 of their pixels flipped (chip_smoke.py's bar; none at
+    32^2, 2e-5 seen at 320^2, fg/bg ties moved by that same DFT error)."""
+    x = _planar_batch(rng, h=n, w=n)
+    port, ref = _run_both(x, perm_row, num, rot_row)
+    if ROTATE not in perm_row[:num]:
+        np.testing.assert_allclose(port, ref, atol=1e-4, rtol=0)
+        return
+    np.testing.assert_array_equal(port[:, 3] + port[:, 4], 1.0)
+    assert (port[:, 3:] != ref[:, 3:]).mean() <= 1e-4
+    np.testing.assert_allclose(port[:, :3], ref[:, :3], atol=5e-2, rtol=0)
+    if rot_row[1] == 1:
+        assert np.all(port[:, :3, 0, 0] == rot_row[3])
+        assert np.all(port[:, 3, 0, 0] == 1.0)
 
 
 def test_gate_passes_samples_through(rng):
@@ -157,3 +186,45 @@ def test_gate_passes_samples_through(rng):
     assert all(not torch.equal(aug_i[k], images[k]) or not torch.equal(
         aug_m[k], masks[k]) for k in range(4))
     assert torch.equal(aug_m.sum(-1), torch.ones(4, 16, 16))
+
+
+def test_fused_route_is_one_full_pass(rng):
+    """On a square batch the default route draws, in order, the gate, the
+    permutation, the prefix length, one seed and the rotation's four
+    parameters, and applies one `full_pass`: the split route's extra draws
+    leave it as it was."""
+    images = torch.from_numpy(rng.integers(0, 256, (6, 16, 16, 3)).astype(
+        np.float32))
+    fg = torch.from_numpy((rng.random((6, 16, 16)) > 0.5).astype(np.float32))
+    masks = torch.stack([1.0 - fg, fg], dim=-1)
+    out = taug.augment_batch(torch.Generator().manual_seed(5), images, masks,
+                             0.5)
+    gen = torch.Generator().manual_seed(5)
+    i32 = dict(generator=gen, dtype=torch.int32)
+    skip = torch.rand(6, generator=gen) <= 0.5
+    perm = torch.argsort(torch.rand(6, 6, generator=gen), 1).int()
+    num = torch.where(skip, 0, torch.randint(1, 7, (6,), **i32))
+    seeds = torch.randint(0, 2 ** 31 - 1, (6,), **i32)
+    rot = torch.stack([torch.randint(lo, hi, (6,), **i32) for lo, hi in (
+        (-45, 45), (0, 4), (0, 2), (0, 256))], 1)
+    ref = taug.from_planar(tk.full_pass_reference(
+        seeds, taug.to_planar(images, masks), perm, num, rot), C_IMG)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
+def test_augment_batch_at_320(rng, fused, monkeypatch):
+    """The JAX CLI's default image size, 320^2, on both routes (it raised
+    before planes past 224^2 were taken): the gate shut, every sample
+    augmented, the masks one-hot."""
+    images = torch.from_numpy(rng.integers(0, 256, (2, 320, 320, 3)).astype(
+        np.float32))
+    fg = torch.from_numpy((rng.random((2, 320, 320)) > 0.5).astype(
+        np.float32))
+    masks = torch.stack([1.0 - fg, fg], dim=-1)
+    monkeypatch.setattr(taug, "PALLAS_FUSED_SINGLE_LAUNCH", fused)
+    gen = torch.Generator().manual_seed(1)
+    aug_i, aug_m = taug.augment_batch(gen, images, masks, 0.0)
+    assert aug_i.shape == images.shape and aug_m.shape == masks.shape
+    assert torch.equal(aug_m.sum(-1), torch.ones(2, 320, 320))
+    assert bool(aug_i.isfinite().all())

@@ -11,7 +11,8 @@ from mliis_tpu.ops import losses as jlosses
 from mliis_tpu.ops import meta_math as jmm
 from mliis_tpu.ops.metrics import soft_iou_flat_per_example as jax_iou
 from mliis_tpu.ops.resize import resize_bilinear_align_corners as jax_resize
-from mliis_tpu_torch.data.synthetic import make_synthetic_store
+from mliis_tpu_torch.data.synthetic import (EXTENDED_SHAPES,
+                                            make_synthetic_store)
 from mliis_tpu_torch.ops import losses as tlosses
 from mliis_tpu_torch.ops import meta_math as tmm
 from mliis_tpu_torch.ops.metrics import soft_iou_flat_per_example
@@ -125,10 +126,16 @@ def test_meta_math_matches(rng):
                                        rtol=1e-6, atol=1e-7)
 
 
-def test_synthetic_store_is_byte_identical():
-    ours = make_synthetic_store(num_tasks=5, examples_per_task=4,
-                                image_size=24, seed=3)
-    ref = jax_store(num_tasks=5, examples_per_task=4, image_size=24, seed=3)
+@pytest.mark.parametrize("shapes", [None, EXTENDED_SHAPES,
+                                    ("triangle", "ring", "diamond")],
+                         ids=["default", "extended", "held_out"])
+def test_synthetic_store_is_byte_identical(shapes):
+    """The default families, all eight, and the held-out three of
+    experiments/curve_v2_r4: the same seed gives the same bytes."""
+    ours = make_synthetic_store(num_tasks=9, examples_per_task=4,
+                                image_size=24, seed=3, shapes=shapes)
+    ref = jax_store(num_tasks=9, examples_per_task=4, image_size=24, seed=3,
+                    shapes=shapes)
     np.testing.assert_array_equal(ours.images, ref.images)
     np.testing.assert_array_equal(ours.masks, ref.masks)
     np.testing.assert_array_equal(ours.counts, ref.counts)

@@ -6,15 +6,16 @@ It prints the card's name and power limit (nvidia-smi) first, then runs
 its phases, one line each (or a few):
   1. build: compile every mliis_tpu_torch/csrc/*.cu kernel for sm_90a, one
      `nvcc` per source, all started together.
-  2. kernel: `full_pass` against `full_pass_reference` on the card at the
-     meta path's shapes (B=8, 5 x 224^2, the plane in shared memory) and at
-     the JAX CLI's default image size (5 x 320^2, the plane in device
-     memory): fixed rows that run every op and every rotation mode, then
-     rows drawn as the meta path draws them. Tolerances: 1e-3 abs on
-     samples without rotation; on rotated samples 1e-2 abs on the image
-     planes (0..255) and at most 1e-4 of the mask pixels flipped (fg/bg
-     ties within float32 DFT rounding). Times both sizes and computes the
-     bounds.
+  2. kernel: `full_pass` against `full_pass_reference` on the card at
+     B=8: the meta path's 5 x 224^2, the JAX CLI's default 5 x 320^2, an
+     odd 5 x 225^2 (padded lines and bins) and the largest plane the
+     wrapper takes, 5 x 512^2: fixed rows that run every op and every
+     rotation mode, then (but at 512^2) rows drawn as the meta path draws
+     them. Tolerances: 1e-3 abs on samples without rotation; on rotated
+     samples 1e-2 abs on the image planes (0..255) and at most 1e-4 of the
+     mask pixels flipped (fg/bg ties within float32 DFT rounding). Times
+     each size, computes the bounds and prints each size's cluster size
+     and shared memory beside the kernel's registers and spills.
   3. kernel[cheap_pass]: `cheap_pass` against `cheap_pass_reference` at
      B=8, 5 x 224^2, a non-square 5 x 160 x 224 and 5 x 320^2: fixed rows
      covering every op, both translate modes in both directions, an empty
@@ -70,6 +71,7 @@ card or away from the checkout.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -135,6 +137,9 @@ def graph_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+BUILD_USAGE = {}  # kernel source -> ptxas's registers and spills
+
+
 def phase_build():
     from mliis_tpu_torch.ops import augment_kernels as ak
     t0 = time.time()
@@ -142,6 +147,14 @@ def phase_build():
     for name, (path, seconds, out) in built.items():
         usage = [ln.strip() for ln in out.splitlines()
                  if "registers" in ln or "spill" in ln]
+        text = " ".join(usage)
+        regs = re.findall(r"Used (\d+) registers", text)
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", text)
+        BUILD_USAGE[name] = {
+            "registers": max(map(int, regs)) if regs else None,
+            "spill_bytes": max((int(a) + int(b) for a, b in spills),
+                               default=None)}
         log("build[{}]: {:.2f} s -> {} | {}".format(name, seconds, path,
                                                     " ; ".join(usage)))
     log("build: {} sources in parallel, {:.2f} s".format(len(built),
@@ -200,10 +213,11 @@ def _shear_line_ops(n):
     return 5 * n * math.log2(n) + 6 * (n // 2 + 1)
 
 
-def _full_pass_at(dev, size, b=8, c_tot=5):
+def _full_pass_at(dev, size, b=8, c_tot=5, drawn=True):
     """`full_pass` against its plain version at B=8, 5 x size^2: fixed rows
-    that run every op and every rotation mode, then rows drawn as the meta
-    path draws them; the times and the bound of the drawn rows."""
+    that run every op and every rotation mode, then (if `drawn`) rows
+    drawn as the meta path draws them; the times and the bound of the
+    last rows checked."""
     import torch
     from mliis_tpu_torch.ops import augment_kernels as ak
     x = _planar_batch(dev, b, size)
@@ -224,22 +238,21 @@ def _full_pass_at(dev, size, b=8, c_tot=5):
         return ((perm == ak.ROTATE_OP) & pos).any(1)
 
     tag = "{0}x{0}".format(size)
-    err = _compare("fixed " + tag, ak.full_pass(seeds, x, perm, num, rot),
-                   ak.full_pass_reference(seeds, x, perm, num, rot),
-                   rotated_of(perm, num))
-    # Rows drawn as ops/augment.augment_batch draws them.
-    perm = torch.argsort(torch.rand(b, 6, generator=gen, device=dev),
-                         1).to(torch.int32).contiguous()
-    num = torch.randint(1, 7, (b,), generator=gen, **i32)
-    seeds = torch.randint(0, 2 ** 31 - 1, (b,), generator=gen, **i32)
-    rot = torch.stack([torch.randint(lo, hi, (b,), generator=gen, **i32)
-                       for lo, hi in ((-45, 45), (0, 4), (0, 2), (0, 256))],
-                      1).contiguous()
     rotated = rotated_of(perm, num)
-    err = max(err, _compare("drawn " + tag,
-                            ak.full_pass(seeds, x, perm, num, rot),
-                            ak.full_pass_reference(seeds, x, perm, num, rot),
-                            rotated))
+    err = _compare("fixed " + tag, ak.full_pass(seeds, x, perm, num, rot),
+                   ak.full_pass_reference(seeds, x, perm, num, rot), rotated)
+    if drawn:   # rows drawn as ops/augment.augment_batch draws them
+        perm = torch.argsort(torch.rand(b, 6, generator=gen, device=dev),
+                             1).to(torch.int32).contiguous()
+        num = torch.randint(1, 7, (b,), generator=gen, **i32)
+        seeds = torch.randint(0, 2 ** 31 - 1, (b,), generator=gen, **i32)
+        rot = torch.stack([torch.randint(lo, hi, (b,), generator=gen, **i32)
+                           for lo, hi in ((-45, 45), (0, 4), (0, 2),
+                                          (0, 256))], 1).contiguous()
+        rotated = rotated_of(perm, num)
+        err = max(err, _compare(
+            "drawn " + tag, ak.full_pass(seeds, x, perm, num, rot),
+            ak.full_pass_reference(seeds, x, perm, num, rot), rotated))
     launch = lambda: ak.full_pass(seeds, x, perm, num, rot)  # noqa: E731
     kernel_ms = graph_ms(launch, 20)
     eager_ms = cuda_ms(launch, 20)
@@ -254,26 +267,38 @@ def _full_pass_at(dev, size, b=8, c_tot=5):
     ops = n_rot * 3 * c_tot * size * _shear_line_ops(size) \
         + noised * size * size * 3 * NOISE_OPS
     bound_ms, bound_by = _bound(bytes_moved, ops, H100_FP32_FLOP_PER_S)
+    cs, group, smem = ak.full_pass_plan(size)
+    usage = BUILD_USAGE.get("full_pass", {})
     log("kernel {}: kernel_ms {:.4f} (eager {:.4f}) plain_ms {:.4f} bound_ms "
         "{:.5f} ({}; {} of {} samples rotated, {} noised; {:.4g} GFLOP as "
-        "FFT shears and noise)".format(tag, kernel_ms, eager_ms, plain_ms,
-                                       bound_ms, bound_by, n_rot, b, noised,
-                                       ops / 1e9))
+        "FFT shears and noise) | cluster {} blocks, {} lines a group, {} B "
+        "shared memory a block, {} registers, {} B spilled".format(
+            tag, kernel_ms, eager_ms, plain_ms, bound_ms, bound_by, n_rot, b,
+            noised, ops / 1e9, cs, group, smem, usage.get("registers"),
+            usage.get("spill_bytes")))
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "cluster": cs,
+            "group": group, "smem_bytes": smem}
+
+
+FULL_PASS_SIZES = ((224, True), (320, True), (225, True), (512, False))
 
 
 def phase_kernel(dev):
-    """`full_pass` at the meta path's shape (B=8, 5 x 224^2, the plane in
-    shared memory) and at the JAX CLI's default image size (5 x 320^2, the
-    plane in device memory), held to the same bars."""
-    entry = _full_pass_at(dev, 224)
-    at_320 = _full_pass_at(dev, 320)
-    entry["max_abs_err"] = max(entry["max_abs_err"], at_320["max_abs_err"])
+    """`full_pass` at the meta path's shape (B=8, 5 x 224^2), at the JAX
+    CLI's default image size (5 x 320^2), at an odd 5 x 225^2 and at the
+    largest plane the wrapper takes (5 x 512^2, fixed rows only), all held
+    to the same bars; the entry's times are the meta path's, every size's
+    beside them."""
+    sizes = {"{0}x{0}".format(n): _full_pass_at(dev, n, drawn=drawn)
+             for n, drawn in FULL_PASS_SIZES}
+    entry = dict(sizes["224x224"])
+    entry["max_abs_err"] = max(s["max_abs_err"] for s in sizes.values())
     return dict({"name": "full_pass", "route": "cuda",
                  "source": "mliis_tpu_torch/csrc/full_pass.cu",
                  "replaces": "mliis_tpu/ops/pallas_augment.py:610",
-                 "library_ms": None}, **entry)
+                 "library_ms": None, "sizes": sizes,
+                 **BUILD_USAGE.get("full_pass", {})}, **entry)
 
 
 def _seeds_by_translate_mode(dev):

@@ -3,7 +3,9 @@
 // counter map. They follow the TPU kernels' _draw_cheap_params and
 // _make_cheap_branches (mliis_tpu/ops/pallas_augment.py:262-336); the
 // plain PyTorch versions are `_draw_cheap_params` and `_compose_reference`
-// in mliis_tpu_torch/ops/augment_kernels.py.
+// in mliis_tpu_torch/ops/augment_kernels.py. Both kernels take an output
+// pixel back through the applied cheap ops with `walk_back` and compute
+// its value with `walk_value`.
 //
 // Ops, by their code in the permutation: 0 eraser, 1 translate, 2 fliplr,
 // 3 gaussian noise, 4 exposure, 5 rotation (full_pass only).
@@ -111,6 +113,108 @@ __device__ __forceinline__ float add_noise(float v, float sd, uint32_t key,
 
 __device__ __forceinline__ float add_exposure(float v, float shift) {
   return clip255(__fadd_rn(v, shift));
+}
+
+constexpr int kMaxImg = 8;  // image planes (_MAX_IMG_PLANES in the wrapper)
+constexpr int kMaxDraws = 9 + (kMaxImg + 2) + 6;
+
+// Block-wide, every thread calls it: the sample's scalar uniforms into
+// `draws` (one thread a Philox word), then thread 0 turns them into the
+// parameters. Ends with a __syncthreads().
+__device__ void block_draw_params(const CheapConsts& k, uint32_t key,
+                                  float* draws, CheapParams* prm) {
+  for (int i = threadIdx.x; i < 9 + k.c_tot + 6; i += blockDim.x)
+    draws[i] = scalar_uniform(key, i);
+  __syncthreads();
+  if (threadIdx.x == 0)
+    draw_cheap_params(k, [draws](int i) { return draws[i]; }, prm);
+  __syncthreads();
+}
+
+// The applied cheap ops of perm row `perm` at stages [lo, hi), rotation
+// excluded, into ops; returns their count.
+__device__ __forceinline__ int list_ops(const int* perm, int lo, int hi,
+                                        int* ops) {
+  int m = 0;
+  for (int s = lo; s < hi; ++s)
+    if (perm[s] != kRotate) ops[m++] = perm[s];
+  return m;
+}
+
+// One output pixel's walk through the cheap ops ops[0, m) of an h x w
+// frame, backward from the pixel: a flip or roll remaps, an eraser box or a
+// stripe fill that covers the pixel ends the walk (the ops before it then
+// do not reach the pixel). Each op appears at most once in a permutation,
+// so the walk keeps only the source (y, x), the coordinates entering the
+// noise op and the order of noise and exposure.
+struct Walk {
+  int y, x;        // the source pixel (where the fill hit, if filled)
+  int filled;      // the op whose fill covers the pixel, or -1
+  int noise_pix;   // y * w + x entering the noise op, or -1: no noise
+  bool exposure;   // exposure applies
+  bool exp_last;   // ... after the noise
+};
+
+__device__ __forceinline__ Walk walk_back(const CheapParams& p,
+                                          const int* ops, int m, int h,
+                                          int w, int y, int x) {
+  Walk k{y, x, -1, -1, false, false};
+  for (int s = m - 1; s >= 0; --s) {
+    const int op = ops[s];
+    if (op == kEraser) {
+      if (in_eraser(p, k.y, k.x)) {
+        k.filled = kEraser;
+        break;
+      }
+    } else if (op == kTranslate) {
+      const int n = p.vert ? h : w;
+      const int t = p.vert ? k.y : k.x;
+      if (!p.do_roll && in_stripe(t, p.shift, n)) {
+        k.filled = kTranslate;
+        break;
+      }
+      const int from = roll_source(t, p.shift, n);
+      if (p.vert) k.y = from; else k.x = from;
+    } else if (op == kFliplr) {
+      k.x = w - 1 - k.x;
+    } else if (op == kNoise) {
+      k.noise_pix = k.y * w + k.x;
+      k.exp_last = k.exposure;
+    } else if (op == kExposure) {
+      k.exposure = true;
+    }
+  }
+  return k;
+}
+
+// Plane c's value at the end of the walk: the fill that covers the pixel
+// (the image fill, or the one-hot background on the mask planes c_img
+// (bg, 1) and c_img + 1 (fg, 0)), else source(), the value at the source
+// pixel; then, forward on the image planes, noise and exposure in their
+// stages' order (a clip after each).
+template <typename Source>
+__device__ __forceinline__ float walk_value(const Walk& k,
+                                            const CheapParams& p,
+                                            const float* draws, int c,
+                                            int c_img, uint32_t key,
+                                            Source source) {
+  const bool is_img = c < c_img;
+  const float bgv = c == c_img ? 1.0f : 0.0f;
+  float v;
+  if (k.filled == kEraser)
+    v = is_img ? p.er_c : bgv;
+  else if (k.filled == kTranslate)
+    v = is_img ? image_fill([draws](int i) { return draws[i]; }, c) : bgv;
+  else
+    v = source();
+  if (is_img) {
+    if (k.exposure && !k.exp_last) v = add_exposure(v, p.exp_shift);
+    if (k.noise_pix >= 0)
+      v = add_noise(v, p.noise_sd, key, static_cast<uint32_t>(k.noise_pix),
+                    c);
+    if (k.exposure && k.exp_last) v = add_exposure(v, p.exp_shift);
+  }
+  return v;
 }
 
 }  // namespace

@@ -22,13 +22,15 @@
 // block's lanes draw the sample's scalar uniforms into shared memory (one
 // lane a Philox word), then thread 0 turns them into the parameters and
 // lists the ops the window applies. Each thread takes output pixels (y, x)
-// and walks those ops backward to the source pixel: a flip or roll is an
-// index remap; an eraser box or a stripe fill that covers the pixel ends
-// the walk with its fill (the image fill, or the one-hot background on the
+// and walks those ops backward to the source pixel (`walk_back` in
+// cheap_ops.cuh, shared with full_pass.cu): a flip or roll is an index
+// remap; an eraser box or a stripe fill that covers the pixel ends the
+// walk with its fill (the image fill, or the one-hot background on the
 // mask planes). It keeps each stage's coordinates, then reads each plane
 // once, applies noise and exposure forward on the image planes at their
-// stages' coordinates (a clip after each), and writes each plane once.
-// Planar in, planar out, neighbouring threads on neighbouring pixels.
+// stages' coordinates (a clip after each; `walk_value`), and writes each
+// plane once. Planar in, planar out, neighbouring threads on neighbouring
+// pixels.
 //
 // What bounds it: the bytes, 2 * C * H * W * 4 a sample (16.1 MB at B=8,
 // 5 x 224^2: 4.8 us at 3.35 TB/s); a noise value costs about 117
@@ -47,8 +49,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kPixelsPerThread = 4;
 constexpr int kTile = kThreads * kPixelsPerThread;
-constexpr int kMaxImg = 8;  // image planes (_MAX_IMG_PLANES in the wrapper)
-constexpr int kMaxDraws = 9 + (kMaxImg + 2) + 6;
 
 struct Args {
   const float* x;    // [B, C_tot, H, W]
@@ -64,89 +64,31 @@ struct Args {
 __global__ void __launch_bounds__(kThreads) cheap_pass_kernel(Args a) {
   __shared__ float draws[kMaxDraws];
   __shared__ CheapParams prm;
-  __shared__ float img_fill[kMaxImg];
   __shared__ int ops[kNumStages];
   __shared__ int num_ops;
   const int b = blockIdx.y;
   const uint32_t key = static_cast<uint32_t>(a.seeds[b]);
-  const int c_tot = a.k.c_tot, c_img = a.c_img;
-  if (threadIdx.x < 9 + c_tot + 6)
-    draws[threadIdx.x] = scalar_uniform(key, threadIdx.x);
-  __syncthreads();
   if (threadIdx.x == 0) {
-    const auto u = [&](int i) { return draws[i]; };
-    draw_cheap_params(a.k, u, &prm);
-    for (int c = 0; c < c_img; ++c) img_fill[c] = image_fill(u, c);
-    const int lo = a.window[2 * b], hi = a.window[2 * b + 1];
-    const int num = a.num[b];
-    int m = 0;
-    for (int s = 0; s < kNumStages; ++s) {
-      const int op = a.perm[b * kNumStages + s];
-      if (s >= lo && s < hi && s < num && op != kRotate) ops[m++] = op;
-    }
-    num_ops = m;
+    const int lo = max(a.window[2 * b], 0);
+    const int hi = min(min(a.window[2 * b + 1], a.num[b]), kNumStages);
+    num_ops = list_ops(a.perm + b * kNumStages, lo, hi, ops);
   }
-  __syncthreads();
+  block_draw_params(a.k, key, draws, &prm);
   const CheapParams p = prm;
   const int m = num_ops;
-  const int h = a.k.h, w = a.k.w, hw = h * w;
+  const int c_tot = a.k.c_tot, h = a.k.h, w = a.k.w, hw = h * w;
   const size_t sample = static_cast<size_t>(b) * c_tot * hw;
 
   for (int k = 0; k < kPixelsPerThread; ++k) {
     const int pix = blockIdx.x * kTile + k * kThreads + threadIdx.x;
     if (pix >= hw) return;
-    // Backward: ys[s], xs[s] are the coordinates in the frame entering
-    // applied op s; a fill at op s makes the forward pass start after it.
-    int ys[kNumStages + 1], xs[kNumStages + 1];
-    ys[m] = pix / w;
-    xs[m] = pix - ys[m] * w;
-    int start = 0;
-    int filled = -1;  // the op whose fill covers the pixel, if any
-    for (int s = m - 1; s >= 0; --s) {
-      int y = ys[s + 1], x = xs[s + 1];
-      const int op = ops[s];
-      if (op == kEraser) {
-        if (in_eraser(p, y, x)) {
-          filled = kEraser;
-          start = s + 1;
-          break;
-        }
-      } else if (op == kTranslate) {
-        const int n = p.vert ? h : w;
-        const int t = p.vert ? y : x;
-        if (!p.do_roll && in_stripe(t, p.shift, n)) {
-          filled = kTranslate;
-          start = s + 1;
-          break;
-        }
-        const int from = roll_source(t, p.shift, n);
-        if (p.vert) y = from; else x = from;
-      } else if (op == kFliplr) {
-        x = w - 1 - x;
-      }
-      ys[s] = y;
-      xs[s] = x;
-    }
-    const size_t in_at = sample + (filled < 0 ? ys[0] * w + xs[0] : 0);
+    const int y = pix / w;
+    const Walk walk = walk_back(p, ops, m, h, w, y, pix - y * w);
+    const int src = walk.y * w + walk.x;
     for (int c = 0; c < c_tot; ++c) {
-      const bool is_img = c < c_img;
-      float v;
-      if (filled == kEraser)
-        v = is_img ? p.er_c : (c == c_img ? 1.0f : 0.0f);
-      else if (filled == kTranslate)
-        v = is_img ? img_fill[c] : (c == c_img ? 1.0f : 0.0f);
-      else
-        v = a.x[in_at + static_cast<size_t>(c) * hw];
-      if (is_img) {  // forward: the value ops at their stages' coordinates
-        for (int s = start; s < m; ++s) {
-          if (ops[s] == kNoise)
-            v = add_noise(v, p.noise_sd, key,
-                          static_cast<uint32_t>(ys[s] * w + xs[s]), c);
-          else if (ops[s] == kExposure)
-            v = add_exposure(v, p.exp_shift);
-        }
-      }
-      a.out[sample + static_cast<size_t>(c) * hw + pix] = v;
+      const size_t plane = sample + static_cast<size_t>(c) * hw;
+      a.out[plane + pix] = walk_value(walk, p, draws, c, a.c_img,
+                                      key, [&] { return a.x[plane + src]; });
     }
   }
 }

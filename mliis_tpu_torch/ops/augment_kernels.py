@@ -4,9 +4,10 @@ PyTorch version, mirroring the TPU kernels of
 
 - `full_pass` (csrc/full_pass.cu) replaces `full_pass`
   (`_full_pass_kernel`): the meta path's six-op composition, one launch
-  per batch. A rotated sample costs 3 shears x 4 products x 2*C*H*W^2
-  FP32 operations (1.35 GFLOP at C=5, 224^2), an unrotated one only its
-  read and write.
+  per batch, one read and one write a pixel. A rotated plane is split
+  over a thread-block cluster (`full_pass_plan`) and sheared as
+  half-spectrum matrix products on the tensor cores in 3xTF32, against
+  the tables of `full_pass_tables`.
 - `cheap_pass` (csrc/cheap_pass.cu) replaces `cheap_pass`
   (`_cheap_pass_kernel`): the split route's five cheap ops at the stages
   of a window, any H x W, two launches per batch around the plain-op
@@ -36,9 +37,12 @@ Every plain version also takes an injected bit source: with all-zero
 bits they reproduce the JAX interpreter's all-zero on-core PRNG, which is
 how the CPU tests hold them against the Pallas kernels.
 
-The DFT tables are cos/sin(2 pi m / n) for m < n, computed in float64 and
-indexed by (j*k) mod n, not cos of the large argument 2 pi j k / n. The
-shear products run in FP32 (no TF32) in both versions.
+The plain version's DFT tables are cos/sin(2 pi m / n) for m < n,
+computed in float64 and indexed by (j*k) mod n, not cos of the large
+argument 2 pi j k / n; its shear products run in FP32. The kernel's
+half-spectrum matrices are built in float64 the same way and split into
+TF32 hi and lo parts (`tf32_split`), whose three products keep FP32
+accuracy.
 """
 import ctypes
 import functools
@@ -53,6 +57,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 NUM_OPS = 6
+_MAX_IMG_PLANES = 8  # kMaxImg in csrc/cheap_ops.cuh
 ROTATE_OP = 5
 # fused_light_augment's ops, in the TPU kernel's branch order.
 LIGHT_OPS = ("translate", "fliplr", "noise", "exposure")
@@ -65,7 +70,9 @@ _HEADERS = ("philox.cuh", "cheap_ops.cuh")
 BUILD_DIR = os.path.join(_PACKAGE, "_build")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
-MAX_FULL_PASS_N = 512  # 32 * kMaxPerLane of the non-resident kernel
+MAX_FULL_PASS_N = 512  # the largest plane full_pass_plan fits a cluster
+_MAX_CLUSTER, _MAX_GROUP = 8, 64   # kMaxCluster, kMaxGroup in full_pass.cu
+_MAX_SMEM = 232448 - 1024          # kMaxSmem in full_pass.cu
 
 _MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -143,6 +150,97 @@ def dft_tables(n: int, device: torch.device
     ang = torch.arange(n, dtype=torch.float64) * (2.0 * math.pi / n)
     return (torch.cos(ang).float().to(device),
             torch.sin(ang).float().to(device))
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def full_pass_plan(n: int) -> Tuple[int, int, int]:
+    """(cs, group, shared-memory bytes a block) of csrc/full_pass.cu for
+    n x n planes: a cluster of cs blocks (the least power of two that
+    leaves each block at most 64 rows, R = ceil(n / cs)) holds a rotated
+    plane; a block shears up to `group` of its lines at once (a multiple
+    of 16, the most that fits). A block's shared memory: its R x n rows, a
+    [group, k1 + 4] line buffer and a [group, 2 nhp + 4] spectrum buffer
+    (k1 = n and nhp = n/2 + 1 rounded up to 8; the +4 keeps the mma's A
+    fragments off shared bank conflicts)."""
+    cs = 1
+    while -(-n // cs) > _MAX_GROUP:
+        cs *= 2
+    rows = -(-n // cs)
+    ld = _round_up(n, 8) + 4
+    ld2 = 2 * _round_up(n // 2 + 1, 8) + 4
+    if cs <= _MAX_CLUSTER:
+        for group in range(min(_MAX_GROUP, _round_up(rows, 16)), 0, -16):
+            smem = 4 * (rows * n + group * (ld + ld2))
+            if smem <= _MAX_SMEM:
+                return cs, group, smem
+    raise ValueError("full_pass takes planes up to {0}x{0} on the card, got "
+                     "{1}x{1}".format(MAX_FULL_PASS_N, n))
+
+
+def shear_matrices(n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's half-spectrum shear in float64: the forward [k1, 2 nhp]
+    (columns: cos, then -sin of 2 pi j k / n for the bins k < n/2 + 1) and
+    the inverse [2 nhp, k1] (rows: w_k cos / n, then -w_k sin / n; w_k 1 at
+    DC and at the Nyquist bin of even n, 2 inside), zero-padded to k1 = n
+    and nhp = n/2 + 1 rounded up to 8. With the phase of the folded
+    frequencies between them they give `_shear_rows`."""
+    k1, nh = _round_up(n, 8), n // 2 + 1
+    nhp = _round_up(nh, 8)
+    jk = (torch.arange(n)[:, None] * torch.arange(nh)[None]) % n
+    ang = jk.double() * (2.0 * math.pi / n)
+    fwd = torch.zeros(k1, 2 * nhp, dtype=torch.float64)
+    fwd[:n, :nh] = torch.cos(ang)
+    fwd[:n, nhp:nhp + nh] = -torch.sin(ang)
+    w = torch.full((nh,), 2.0, dtype=torch.float64)
+    w[0] = 1.0
+    if n % 2 == 0:
+        w[-1] = 1.0
+    inv = torch.zeros(2 * nhp, k1, dtype=torch.float64)
+    inv[:nh, :n] = (w[:, None] / n) * torch.cos(ang.T)
+    inv[nhp:nhp + nh, :n] = -(w[:, None] / n) * torch.sin(ang.T)
+    return fwd, inv
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """float32 v rounded to TF32 (10 mantissa bits), to nearest and ties
+    away from zero (cvt.rna.tf32.f32's rounding)."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) TF32 parts of a float64 matrix: hi + lo is m to about
+    2^-22 relative, and hi.b + lo.b's products on the tensor cores keep
+    FP32 accuracy."""
+    hi = tf32_round(m.float())
+    return hi, tf32_round((m - hi.double()).float())
+
+
+def mma_fragments(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """[K, N] hi and lo parts in mma.m16n8k8's B-fragment order, [N/8, K/8,
+    32, 4]: for n-tile nt, k-step ks and lane 4g + t the float4 (hi b0, hi
+    b1, lo b0, lo b1) with b0 = B[8 ks + t, 8 nt + g], b1 = B[8 ks + t + 4,
+    8 nt + g]."""
+    k, n = hi.shape
+
+    def part(m):   # [nt, ks, g, t, (row t, row t + 4)]
+        return m.reshape(k // 8, 2, 4, n // 8, 8).permute(3, 0, 4, 2, 1)
+
+    return torch.cat([part(hi), part(lo)], -1).reshape(
+        n // 8, k // 8, 32, 4).contiguous()
+
+
+@functools.lru_cache(maxsize=8)
+def full_pass_tables(n: int, device: torch.device
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's forward and inverse shear tables for n x n planes, in
+    B-fragment order (`mma_fragments` of `tf32_split` of
+    `shear_matrices`), float32 on `device`."""
+    return tuple(mma_fragments(*tf32_split(m)).to(device)
+                 for m in shear_matrices(n))
 
 
 def rotation_trig(rot: torch.Tensor) -> torch.Tensor:
@@ -578,7 +676,7 @@ def build_library(names: Sequence[str] = KERNEL_SOURCES,
 
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "full_pass": [_PTR] * 9 + [_I32] * 5 + [_F32] * 6 + [_PTR],
+    "full_pass": [_PTR] * 9 + [_I32] * 8 + [_F32] * 6 + [_PTR],
     "cheap_pass": [_PTR] * 6 + [_I32] * 6 + [_F32] * 6 + [_PTR],
     "light_augment": [_PTR] * 5 + [_I32] * 4 + [_F32] * 3 + [_PTR],
 }
@@ -632,7 +730,11 @@ def full_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
     Args:
       seeds: [B] int32 per-sample Philox keys.
       x: [B, C_tot, H, W] float32 planar image + one-hot mask batch, H == W
-        (at most MAX_FULL_PASS_N on the card), C_tot - c_img == 2.
+        (at most MAX_FULL_PASS_N, and c_img at most 8, on the card),
+        C_tot - c_img == 2. The mask planes must be one-hot (bg == 1 - fg):
+        the kernel rotates the fg plane alone and writes bg as 1 - fg, so
+        after a rotation it may differ from the plain version's two-plane
+        snap only at a tie |fg - 1/2| within rounding.
       perm: [B, 6] int32 op permutation (0 eraser, 1 translate, 2 fliplr,
         3 noise, 4 exposure, 5 rotation).
       num: [B] int32 prefix length.
@@ -659,16 +761,20 @@ def full_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
     if n > MAX_FULL_PASS_N:
         raise ValueError("full_pass takes planes up to {0}x{0} on the card, "
                          "got {1}x{1}".format(MAX_FULL_PASS_N, n))
+    if c_img > _MAX_IMG_PLANES:
+        raise ValueError("full_pass takes at most {} image planes on the "
+                         "card".format(_MAX_IMG_PLANES))
     launch = _library("full_pass")
     out = torch.empty_like(x)
     trig = rotation_trig(rot)
-    cos_tab, sin_tab = dft_tables(n, x.device)
+    cs, group, smem = full_pass_plan(n)
+    fwd, inv = full_pass_tables(n, x.device)
     with torch.cuda.device(x.device):   # the launch goes to x's card
         err = launch(
             x.data_ptr(), out.data_ptr(), seeds.data_ptr(), perm.data_ptr(),
-            num.data_ptr(), rot.data_ptr(), trig.data_ptr(),
-            cos_tab.data_ptr(), sin_tab.data_ptr(), b, c_tot, n, c_img,
-            max_shift, *_float_consts(**floats),
+            num.data_ptr(), rot.data_ptr(), trig.data_ptr(), fwd.data_ptr(),
+            inv.data_ptr(), b, c_tot, n, c_img, max_shift, cs, group, smem,
+            *_float_consts(**floats),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError("full_pass kernel launch failed: cudaError {}"
@@ -678,8 +784,6 @@ def full_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
 
 
 full_pass.launches = 0
-
-_MAX_IMG_PLANES = 8  # kMaxImg in csrc/cheap_pass.cu
 
 
 def cheap_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,

@@ -17,20 +17,28 @@ its phases, one line each (or a few):
      each size, computes the bounds and prints each size's cluster size
      and shared memory beside the kernel's registers and spills.
   3. kernel[cheap_pass]: `cheap_pass` against `cheap_pass_reference` at
-     B=8, 5 x 224^2, a non-square 5 x 160 x 224 and 5 x 320^2: fixed rows
-     covering every op, both translate modes in both directions, an empty
-     window, a rotation-only stage and the two windows around a rotation,
-     then rows drawn as the split route draws them (both windows). Image
-     planes 1e-3 abs on 0..255, mask planes exact. Times each size and
-     computes the bound.
+     B=8, 5 x 224^2, a non-square 5 x 160 x 224, 5 x 320^2 and an odd
+     5 x 161 x 225 (4-byte copies, scalar stores): fixed rows covering
+     every op, both translate modes in both directions, an empty window, a
+     rotation-only stage and the two windows around a rotation, then rows
+     drawn as the split route draws them (both windows). Image planes
+     1e-3 abs on 0..255, mask planes exact. Times each size and computes
+     the bound; then rows too wide for shared memory (5 x 3 x 5000, the
+     direct mode) are checked alone.
   4. kernel[light_augment]: `fused_light_augment` against
      `fused_light_augment_reference` at the joint path's shapes (B=64,
      224^2, prob_original 0, labels in 0..1000), with seeds that cover
-     every op, prefix length and translate mode (the coverage is printed):
-     labels exact, images 1e-3 abs on 0..255; prob_original 1 must be the
-     identity. Times both and computes the bound.
-  A kernel's `ms` is the device time of a launch, from a CUDA graph of
-  many launches (its eager, event-timed loop is printed beside it).
+     every op, prefix length and translate mode (the coverage is printed),
+     and at an odd B=8, 225^2: labels exact, images 1e-3 abs on 0..255;
+     prob_original 1 must be the identity. Times both sizes and computes
+     the bound; then B=2, 4 x 6000 (the direct mode) is checked alone.
+  A kernel's time is the device time of a launch, from a CUDA graph of
+  many launches: `cold_ms` with a cold L2 (the launches rotate through
+  copies of the input, at least 2 x 50 MB apart, and keep every output),
+  `ms` with a warm one (the same input each launch; its eager, event-timed
+  loop is printed beside it). The bound's share is taken from `cold_ms`;
+  the row kernels' plan (grid, ring stages, copy mode, shared memory) is
+  printed beside their registers and spills.
   5. agree: EfficientLab-b0's train-mode loss and gradients at a small
      input (4 x 64^2, float32, no dropout) on the card and on the CPU must
      agree: loss 1e-4 rel, each param's gradient within 1e-3 of the whole
@@ -64,8 +72,9 @@ its phases, one line each (or a few):
      Prints the store's build seconds, steps/s over the last 6 steps and
      the peak memory.
 Then the `kernels` JSON line (each kernel's launches on the path it
-carries, and on every path), the card's name and power limit again, and
-the result line. Any failed phase exits non-zero, as does a run without a
+carries, and on every path; `ms`, `cold_ms` and `bound_share` at the main
+path's size, every size's beside them), the card's name and power limit
+again, and the result line. Any failed phase exits non-zero, as does a run without a
 card or away from the checkout.
 """
 import json
@@ -126,6 +135,11 @@ def graph_ms(fn, reps):
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for _ in range(reps):
             fn()
+    return _replay_ms(graph, reps)
+
+
+def _replay_ms(graph, reps):
+    import torch
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -135,6 +149,39 @@ def graph_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+L2_BYTES = 50e6  # the H100's L2
+
+
+def cold_graph_ms(fn, inputs, bytes_moved, reps=20):
+    """Device ms per call of fn(*inputs) with a cold L2: as `graph_ms`, but
+    the calls rotate through copies of the `inputs` tensors, enough that at
+    least 2 x 50 MB (`bytes_moved` a call) pass between two uses of one
+    copy, and every call's output is kept, so that each launch reads its
+    input from device memory and writes fresh lines. Returns (ms, copies).
+    """
+    import torch
+    copies = 1 + math.ceil(2 * L2_BYTES / bytes_moved)
+    sets = [tuple(t.clone() for t in inputs) for _ in range(copies)]
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    graph, outs = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(reps):
+            outs.append(fn(*sets[i % copies]))
+    ms = _replay_ms(graph, reps)
+    del graph, outs, sets
+    torch.cuda.empty_cache()
+    return ms, copies
+
+
+def kernel_times(fn, inputs, bytes_moved, warm_reps):
+    """{"ms": warm, "eager_ms", "cold_ms", "cold_copies"} of fn(*inputs)."""
+    warm = lambda: fn(*inputs)  # noqa: E731
+    cold, copies = cold_graph_ms(fn, inputs, bytes_moved)
+    return {"ms": graph_ms(warm, warm_reps), "eager_ms": cuda_ms(warm, 20),
+            "cold_ms": cold, "cold_copies": copies}
 
 
 BUILD_USAGE = {}  # kernel source -> ptxas's registers and spills
@@ -188,6 +235,13 @@ def _compare(name, out, ref, rotated, c_img=3):
             and bool(out.isfinite().all())):
         raise AssertionError("full_pass disagrees with its plain version")
     return max(e0, e1)
+
+
+def _times_text(t, bound_ms):
+    return ("cold_ms {:.4f} ({} input copies; {:.1%} of the bound) warm_ms "
+            "{:.4f} (eager {:.4f}) bound_ms {:.5f}".format(
+                t["cold_ms"], t["cold_copies"], bound_ms / t["cold_ms"],
+                t["ms"], t["eager_ms"], bound_ms))
 
 
 def _bound(bytes_moved, ops, ops_per_s):
@@ -253,15 +307,14 @@ def _full_pass_at(dev, size, b=8, c_tot=5, drawn=True):
         err = max(err, _compare(
             "drawn " + tag, ak.full_pass(seeds, x, perm, num, rot),
             ak.full_pass_reference(seeds, x, perm, num, rot), rotated))
-    launch = lambda: ak.full_pass(seeds, x, perm, num, rot)  # noqa: E731
-    kernel_ms = graph_ms(launch, 20)
-    eager_ms = cuda_ms(launch, 20)
+    bytes_moved = 2 * x.numel() * 4 + 4 * (b + 6 * b + b + 4 * b)
+    t = kernel_times(lambda xx: ak.full_pass(seeds, xx, perm, num, rot),
+                     (x,), bytes_moved, 20)
     plain_ms = cuda_ms(lambda: ak.full_pass_reference(seeds, x, perm, num,
                                                       rot), 3)
     n_rot = int(rotated.sum())
     pos = torch.arange(6, device=dev)[None] < num[:, None]
     noised = int(((perm == NOISE_OP) & pos).any(1).sum())
-    bytes_moved = 2 * x.numel() * 4 + 4 * (b + 6 * b + b + 4 * b)
     # Three shears of every line of every plane of a rotated sample, plus
     # the noise of the noised samples' image planes.
     ops = n_rot * 3 * c_tot * size * _shear_line_ops(size) \
@@ -269,16 +322,15 @@ def _full_pass_at(dev, size, b=8, c_tot=5, drawn=True):
     bound_ms, bound_by = _bound(bytes_moved, ops, H100_FP32_FLOP_PER_S)
     cs, group, smem = ak.full_pass_plan(size)
     usage = BUILD_USAGE.get("full_pass", {})
-    log("kernel {}: kernel_ms {:.4f} (eager {:.4f}) plain_ms {:.4f} bound_ms "
-        "{:.5f} ({}; {} of {} samples rotated, {} noised; {:.4g} GFLOP as "
-        "FFT shears and noise) | cluster {} blocks, {} lines a group, {} B "
-        "shared memory a block, {} registers, {} B spilled".format(
-            tag, kernel_ms, eager_ms, plain_ms, bound_ms, bound_by, n_rot, b,
-            noised, ops / 1e9, cs, group, smem, usage.get("registers"),
-            usage.get("spill_bytes")))
-    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "cluster": cs,
-            "group": group, "smem_bytes": smem}
+    log("kernel {}: {} plain_ms {:.4f} ({}; {} of {} samples rotated, {} "
+        "noised; {:.4g} GFLOP as FFT shears and noise) | cluster {} blocks, "
+        "{} lines a group, {} B shared memory a block, {} registers, {} B "
+        "spilled".format(tag, _times_text(t, bound_ms), plain_ms, bound_by,
+                         n_rot, b, noised, ops / 1e9, cs, group, smem,
+                         usage.get("registers"), usage.get("spill_bytes")))
+    return dict(t, max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_share=bound_ms / t["cold_ms"],
+                cluster=cs, group=group, smem_bytes=smem)
 
 
 FULL_PASS_SIZES = ((224, True), (320, True), (225, True), (512, False))
@@ -341,14 +393,39 @@ def _cheap_rows(dev, b):
     return seeds[:b], perm[:b], num[:b], window[:b], identity[:b]
 
 
-def _cheap_pass_at(dev, h, w, b=8):
+def _random_planar(dev, b, h, w):
+    """Random images (0..255) and a random one-hot mask, planar."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(5)
+    img = torch.randint(0, 256, (b, 3, h, w), generator=gen,
+                        device=dev).float()
+    fg = (torch.rand(b, 1, h, w, generator=gen, device=dev) > 0.5).float()
+    return torch.cat([img, 1.0 - fg, fg], 1).contiguous()
+
+
+ROW_MODES = {0: "direct", 1: "cp.async", 2: "bulk"}
+
+
+def _plan_text(plan):
+    return ("{} blocks, {} stages, {} copies, {} B shared memory a "
+            "block".format(plan.grid, plan.stages, ROW_MODES[plan.mode],
+                           plan.smem))
+
+
+def _sms(dev):
+    import torch
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _cheap_pass_at(dev, h, w, b=8, x=None):
     """`cheap_pass` against its plain version at B=8, 5 x h x w: the fixed
     rows, then rows drawn as the split route draws them (both windows);
     image planes 1e-3 abs on 0..255, mask planes exact. Returns the max
-    error, the drawn rows and the batch."""
+    error, the drawn rows, the batch and the launch's plan."""
     import torch
     from mliis_tpu_torch.ops import augment_kernels as ak
-    x = _planar_batch(dev, b, max(h, w))[:, :, :h, :w].contiguous()
+    if x is None:
+        x = _planar_batch(dev, b, max(h, w))[:, :, :h, :w].contiguous()
     seeds, perm, num, window, identity = _cheap_rows(dev, b)
     checks = [(seeds, perm, num, window)]
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -372,79 +449,95 @@ def _cheap_pass_at(dev, h, w, b=8):
         if i == 0:
             exact &= bool(torch.equal(out[identity], x[identity]))
             changed = int((out != x).flatten(1).any(1).sum())
+    plan = ak.cheap_pass_plan(b, x.shape[1], h, w, _sms(dev))
     log("kernel[cheap_pass] {}x{}: max abs image {:.3g} (<= 1e-3) | masks "
         "exact, identity rows unchanged {} | fixed rows changed {} of {} "
-        "(expect 6)".format(h, w, err, exact, changed, b))
+        "(expect 6) | {}".format(h, w, err, exact, changed, b,
+                                 _plan_text(plan)))
     if not (err <= 1e-3 and exact and changed == 6):
         raise AssertionError("cheap_pass disagrees with its plain version")
-    return err, (seeds_d[0], perm_d, num_d, windows[0]), x
+    return err, (seeds_d[0], perm_d, num_d, windows[0]), x, plan
+
+
+# The split route's 224^2, a non-square 160x224, the JAX CLI's 320^2 and an
+# odd 161x225 (4-byte copies, scalar stores).
+CHEAP_SIZES = ((224, 224), (160, 224), (320, 320), (161, 225))
 
 
 def phase_cheap_kernel(dev):
-    """`cheap_pass` at the split route's shapes, B=8: 5 x 224^2, a
-    non-square 5 x 160 x 224 and 5 x 320^2; times the drawn rows' first
-    pass at each size and computes the bound."""
+    """`cheap_pass` at B=8 and 5 x CHEAP_SIZES; times the drawn rows' first
+    pass at each size (cold and warm L2) and computes the bound; then rows
+    too wide for shared memory (5 x 3 x 5000, no ring), checked only."""
     from mliis_tpu_torch.ops import augment_kernels as ak
-    err, entry = 0.0, None
-    for h, w in ((224, 224), (160, 224), (320, 320)):
-        e, args, x = _cheap_pass_at(dev, h, w)
-        err = max(err, e)
-        launch = lambda: ak.cheap_pass(args[0], x, *args[1:])  # noqa: E731
-        kernel_ms, eager_ms = graph_ms(launch, 50), cuda_ms(launch, 50)
-        plain_ms = cuda_ms(lambda: ak.cheap_pass_reference(
-            args[0], x, *args[1:]), 3)
+    sizes = {}
+    usage = BUILD_USAGE.get("cheap_pass", {})
+    for h, w in CHEAP_SIZES:
+        e, args, x, plan = _cheap_pass_at(dev, h, w)
         b = x.shape[0]
         applied = ak.cheap_applied(*args[1:])
         noised = int((applied & (args[1] == NOISE_OP)).any(1).sum())
         bytes_moved = 2 * x.numel() * 4 + 4 * (b + 6 * b + b + 2 * b)
         ops = noised * h * w * 3 * NOISE_OPS
         bound_ms, bound_by = _bound(bytes_moved, ops, H100_FP32_FLOP_PER_S)
-        log("kernel[cheap_pass] {}x{}: kernel_ms {:.4f} (eager {:.4f}) "
-            "plain_ms {:.4f} bound_ms {:.5f} ({}; {} of {} samples "
-            "noised)".format(h, w, kernel_ms, eager_ms, plain_ms, bound_ms,
-                             bound_by, noised, b))
-        if entry is None:
-            entry = {"name": "cheap_pass", "route": "cuda",
-                     "source": "mliis_tpu_torch/csrc/cheap_pass.cu",
-                     "replaces": "mliis_tpu/ops/pallas_augment.py:389",
-                     "ms": kernel_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None}
-    entry["max_abs_err"] = err
-    return entry
+        t = kernel_times(lambda xx: ak.cheap_pass(args[0], xx, *args[1:]),
+                         (x,), bytes_moved, 50)
+        plain_ms = cuda_ms(lambda: ak.cheap_pass_reference(
+            args[0], x, *args[1:]), 3)
+        log("kernel[cheap_pass] {}x{}: {} plain_ms {:.4f} ({}; {} of {} "
+            "samples noised) | {} registers, {} B spilled".format(
+                h, w, _times_text(t, bound_ms), plain_ms, bound_by, noised,
+                b, usage.get("registers"), usage.get("spill_bytes")))
+        sizes["{}x{}".format(h, w)] = dict(
+            t, max_abs_err=e, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, bound_share=bound_ms / t["cold_ms"],
+            plan=plan._asdict())
+    e, _, _, plan = _cheap_pass_at(dev, 3, 5000,
+                                   x=_random_planar(dev, 8, 3, 5000))
+    if plan.mode != ak.ROW_DIRECT:
+        raise AssertionError("5 x 3 x 5000 should take the direct mode")
+    entry = dict(sizes["224x224"])
+    entry["max_abs_err"] = max([e] + [s["max_abs_err"]
+                                      for s in sizes.values()])
+    return dict({"name": "cheap_pass", "route": "cuda",
+                 "source": "mliis_tpu_torch/csrc/cheap_pass.cu",
+                 "replaces": "mliis_tpu/ops/pallas_augment.py:389",
+                 "library_ms": None, "sizes": sizes, **usage}, **entry)
 
 
-def phase_light_kernel(dev):
-    """`fused_light_augment` against its plain version at the joint path's
-    shapes (B=64, 224^2, prob_original 0, labels in 0..1000)."""
+def _light_at(dev, b, h, w, cover):
+    """`fused_light_augment` against its plain version at B x h x w
+    (prob_original 0, labels in 0..1000; with `cover`, seeds that cover
+    every op, prefix length and translate mode): labels exact, images 1e-3
+    abs on 0..255, prob_original 1 the identity. Returns the max error,
+    the inputs, the noised samples and the launch's plan."""
     import torch
     from mliis_tpu_torch.ops import augment_kernels as ak
-    b, size = 64, 224
     gen = torch.Generator(device=dev).manual_seed(11)
-    images = torch.randint(0, 256, (b, size, size, 3), generator=gen,
+    images = torch.randint(0, 256, (b, h, w, 3), generator=gen,
                            device=dev).float()
-    masks = torch.randint(0, 1001, (b, size, size), generator=gen,
+    masks = torch.randint(0, 1001, (b, h, w), generator=gen,
                           device=dev).float()
     seeds = torch.arange(1000, 1000 + b, dtype=torch.int32, device=dev)
     p = ak.draw_light_params(seeds)
     stage = torch.arange(4, device=dev)[None]
     applied = [((p["ops"] == op) & (stage < p["num"][:, None])).any(1)
                for op in range(4)]
-    tr = applied[ak.TRANSLATE]
-    coverage = {
-        "samples_per_op": {name: int(a.sum()) for name, a in zip(
-            ak.LIGHT_OPS, applied)},
-        "prefix_lengths": {n: int((p["num"] == n).sum()) for n in range(
-            1, 5)},
-        "translate": {"roll": int((tr & p["do_roll"]).sum()),
-                      "stripe": int((tr & ~p["do_roll"]).sum()),
-                      "vertical": int((tr & p["vert"]).sum()),
-                      "horizontal": int((tr & ~p["vert"]).sum())},
-    }
-    log("kernel[light_augment]: coverage " + json.dumps(coverage))
-    counts = [v for d in coverage.values() for v in d.values()]
-    if min(counts) == 0:
-        raise AssertionError("the seeds do not cover every op and mode")
+    if cover:
+        tr = applied[ak.TRANSLATE]
+        coverage = {
+            "samples_per_op": {name: int(a.sum()) for name, a in zip(
+                ak.LIGHT_OPS, applied)},
+            "prefix_lengths": {n: int((p["num"] == n).sum()) for n in range(
+                1, 5)},
+            "translate": {"roll": int((tr & p["do_roll"]).sum()),
+                          "stripe": int((tr & ~p["do_roll"]).sum()),
+                          "vertical": int((tr & p["vert"]).sum()),
+                          "horizontal": int((tr & ~p["vert"]).sum())},
+        }
+        log("kernel[light_augment]: coverage " + json.dumps(coverage))
+        counts = [v for d in coverage.values() for v in d.values()]
+        if min(counts) == 0:
+            raise AssertionError("the seeds do not cover every op and mode")
 
     out_i, out_m = ak.fused_light_augment(seeds, images, masks)
     ref_i, ref_m = ak.fused_light_augment_reference(seeds, images, masks)
@@ -454,29 +547,58 @@ def phase_light_kernel(dev):
                                         prob_original=1.0)
     identity = bool(torch.equal(id_i, images) and torch.equal(id_m, masks))
     changed = float((out_i != images).any(-1).float().mean())
-    log("kernel[light_augment]: B={} {}^2 | max abs image {:.3g} (<= 1e-3) "
+    plan = ak.light_plan(b, h, w, _sms(dev))
+    log("kernel[light_augment]: B={} {}x{} | max abs image {:.3g} (<= 1e-3) "
         "| labels exact {} | prob_original=1 identity {} | pixels changed "
-        "{:.3f}".format(b, size, err, labels_exact, identity, changed))
+        "{:.3f} | {}".format(b, h, w, err, labels_exact, identity, changed,
+                             _plan_text(plan)))
     if not (err <= 1e-3 and labels_exact and identity
             and bool(out_i.isfinite().all())):
         raise AssertionError("fused_light_augment disagrees with its plain "
                              "version")
-    launch = lambda: ak.fused_light_augment(seeds, images, masks)  # noqa
-    kernel_ms, eager_ms = graph_ms(launch, 20), cuda_ms(launch, 20)
-    plain_ms = cuda_ms(lambda: ak.fused_light_augment_reference(
-        seeds, images, masks), 3)
-    noisy = int(applied[ak.NOISE].sum())
-    bytes_moved = 2 * (images.numel() + masks.numel()) * 4 + 4 * b
-    ops = noisy * size * size * 3 * NOISE_OPS
-    bound_ms, bound_by = _bound(bytes_moved, ops, H100_FP32_FLOP_PER_S)
-    log("kernel[light_augment]: kernel_ms {:.4f} (eager {:.4f}) plain_ms "
-        "{:.4f} bound_ms {:.5f} ({}; {} of {} samples noised)".format(
-            kernel_ms, eager_ms, plain_ms, bound_ms, bound_by, noisy, b))
-    return {"name": "fused_light_augment", "route": "cuda",
-            "source": "mliis_tpu_torch/csrc/light_augment.cu",
-            "replaces": "mliis_tpu/ops/pallas_augment.py:188",
-            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return err, (seeds, images, masks), int(applied[ak.NOISE].sum()), plan
+
+
+# The joint path's B=64 at 224^2, and an odd 225^2 at B=8 (4-byte copies,
+# scalar stores).
+LIGHT_SIZES = ((64, 224, True), (8, 225, False))
+
+
+def phase_light_kernel(dev):
+    """`fused_light_augment` at LIGHT_SIZES, timed (cold and warm L2)
+    against the bound; then rows too wide for shared memory (B=2, 4 x 6000,
+    no ring), checked only."""
+    from mliis_tpu_torch.ops import augment_kernels as ak
+    sizes = {}
+    usage = BUILD_USAGE.get("light_augment", {})
+    for b, size, cover in LIGHT_SIZES:
+        err, (seeds, images, masks), noisy, plan = _light_at(
+            dev, b, size, size, cover)
+        bytes_moved = 2 * (images.numel() + masks.numel()) * 4 + 4 * b
+        ops = noisy * size * size * 3 * NOISE_OPS
+        bound_ms, bound_by = _bound(bytes_moved, ops, H100_FP32_FLOP_PER_S)
+        t = kernel_times(lambda i, m: ak.fused_light_augment(seeds, i, m),
+                         (images, masks), bytes_moved, 20)
+        plain_ms = cuda_ms(lambda: ak.fused_light_augment_reference(
+            seeds, images, masks), 3)
+        log("kernel[light_augment] B={} {}^2: {} plain_ms {:.4f} ({}; {} of "
+            "{} samples noised) | {} registers, {} B spilled".format(
+                b, size, _times_text(t, bound_ms), plain_ms, bound_by, noisy,
+                b, usage.get("registers"), usage.get("spill_bytes")))
+        sizes["B{} {}x{}".format(b, size, size)] = dict(
+            t, max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, bound_share=bound_ms / t["cold_ms"],
+            plan=plan._asdict())
+    err, _, _, plan = _light_at(dev, 2, 4, 6000, False)
+    if plan.mode != ak.ROW_DIRECT:
+        raise AssertionError("B=2, 4 x 6000 should take the direct mode")
+    entry = dict(sizes["B64 224x224"])
+    entry["max_abs_err"] = max([err] + [s["max_abs_err"]
+                                        for s in sizes.values()])
+    return dict({"name": "fused_light_augment", "route": "cuda",
+                 "source": "mliis_tpu_torch/csrc/light_augment.cu",
+                 "replaces": "mliis_tpu/ops/pallas_augment.py:188",
+                 "library_ms": None, "sizes": sizes, **usage}, **entry)
 
 
 def _loss_and_grads(dev, init_state, images, masks):
@@ -836,7 +958,7 @@ def main() -> int:
     for e in entries:
         e["launches"] = by_path[main_path[e["name"]]][e["name"]]
         e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}
-        for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
+        for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(e[key]):
                 raise AssertionError("{} of {} is not finite".format(
                     key, e["name"]))

@@ -3,9 +3,10 @@
 // counter map. They follow the TPU kernels' _draw_cheap_params and
 // _make_cheap_branches (mliis_tpu/ops/pallas_augment.py:262-336); the
 // plain PyTorch versions are `_draw_cheap_params` and `_compose_reference`
-// in mliis_tpu_torch/ops/augment_kernels.py. Both kernels take an output
-// pixel back through the applied cheap ops with `walk_back` and compute
-// its value with `walk_value`.
+// in mliis_tpu_torch/ops/augment_kernels.py. full_pass takes an output
+// pixel back through the applied cheap ops with `walk_back` and computes
+// its value with `walk_value`; cheap_pass splits the same walk into a row
+// part and a column part (its note) over the same ops and fills.
 //
 // Ops, by their code in the permutation: 0 eraser, 1 translate, 2 fliplr,
 // 3 gaussian noise, 4 exposure, 5 rotation (full_pass only).
@@ -47,12 +48,12 @@ struct CheapParams {
   float noise_sd, exp_shift;
 };
 
-// The scalar draws in the TPU kernel's _draw_cheap_params order; u(i) is
-// the uniform at counter (i, 0). The eraser's area is s * H * W, its top
-// in [0, H), its left in [0, W).
+// The draws that place a sample's lines: the eraser's box (its area is
+// s * H * W, its top in [0, H), its left in [0, W)) and the translate
+// (vertical, shift, roll); u(i) is the uniform at counter (i, 0).
 template <typename Uniform>
-__device__ void draw_cheap_params(const CheapConsts& a, Uniform u,
-                                  CheapParams* p) {
+__device__ __forceinline__ void draw_placement(const CheapConsts& a,
+                                               Uniform u, CheapParams* p) {
   const float er_s = __fmul_rn(
       __fmul_rn(__fadd_rn(__fmul_rn(u(0), a.er_s_range), a.er_s_l),
                 static_cast<float>(a.h)),
@@ -62,18 +63,42 @@ __device__ void draw_cheap_params(const CheapConsts& a, Uniform u,
   p->er_h = static_cast<int>(floorf(__fsqrt_rn(__fmul_rn(er_s, er_r))));
   p->er_top = randint(u(2), 0, a.h);
   p->er_left = randint(u(3), 0, a.w);
-  p->er_c = __fmul_rn(u(4), 255.0f);
   p->vert = u(5) < 0.5f;
   const bool direction = u(6) < 0.5f;
   const int shift = randint(u(7), 1, a.max_shift + 1);
   p->shift = direction ? shift : -shift;
   p->do_roll = u(8) < 0.5f;
-  const int g = 9 + a.c_tot;
-  p->noise_sd =
-      fabsf(__fadd_rn(a.noise_mean_sd, box_muller(u(g), u(g + 1))));
-  const float exp_sd =
-      fabsf(__fadd_rn(a.exposure_mean_sd, box_muller(u(g + 2), u(g + 3))));
-  p->exp_shift = __fmul_rn(exp_sd, box_muller(u(g + 4), u(g + 5)));
+}
+
+// The value draws from their three normals: the eraser's fill, the noise
+// sd |noise_mean_sd + n0| and the exposure shift |exposure_mean_sd + n1| *
+// n2.
+template <typename Uniform>
+__device__ __forceinline__ void values_from_normals(const CheapConsts& a,
+                                                    Uniform u, float n0,
+                                                    float n1, float n2,
+                                                    CheapParams* p) {
+  p->er_c = __fmul_rn(u(4), 255.0f);
+  p->noise_sd = fabsf(__fadd_rn(a.noise_mean_sd, n0));
+  p->exp_shift = __fmul_rn(fabsf(__fadd_rn(a.exposure_mean_sd, n1)), n2);
+}
+
+// Normal i < 3 of the value draws: Box-Muller on the uniforms at
+// 9 + C_tot + 2i and the next.
+template <typename Uniform>
+__device__ __forceinline__ float value_normal(const CheapConsts& a,
+                                              Uniform u, int i) {
+  const int g = 9 + a.c_tot + 2 * i;
+  return box_muller(u(g), u(g + 1));
+}
+
+// The scalar draws in the TPU kernel's _draw_cheap_params order.
+template <typename Uniform>
+__device__ void draw_cheap_params(const CheapConsts& a, Uniform u,
+                                  CheapParams* p) {
+  draw_placement(a, u, p);
+  values_from_normals(a, u, value_normal(a, u, 0), value_normal(a, u, 1),
+                      value_normal(a, u, 2), p);
 }
 
 // The translate stripe fill of image plane c.

@@ -16,7 +16,13 @@ PyTorch version, mirroring the TPU kernels of
   `fused_light_augment` (`_augment_kernel`): the joint path's four-op
   composition on NHWC images and class-id labels, one launch per
   augmented SGD step. It is bound by its bytes; the source note gives its
-  design and its Philox counter map.
+  Philox counter map.
+Both split each pixel's walk through the ops into a row part and a column
+part, and stream source lines through a ring of shared-memory stages in
+persistent blocks, a producer warp staging the lines and consumer warps
+taking them as they come (csrc/row_ring.cuh): the blocks take the output
+lines in a sample-interleaved order (`unit_order`), and `row_pass_plan`
+picks the grid, the ring and the copy mode.
 
 Every kernel is compiled from its source under csrc/ by `nvcc` for
 sm_90a into BUILD_DIR at first use, one shared library per source, and
@@ -52,7 +58,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -66,7 +72,7 @@ TRANSLATE, FLIPLR, NOISE, EXPOSURE = range(len(LIGHT_OPS))
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PACKAGE, "csrc")
 KERNEL_SOURCES = ("full_pass", "cheap_pass", "light_augment")  # csrc/<name>.cu
-_HEADERS = ("philox.cuh", "cheap_ops.cuh")
+_HEADERS = ("philox.cuh", "cheap_ops.cuh", "row_ring.cuh")
 BUILD_DIR = os.path.join(_PACKAGE, "_build")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -178,6 +184,119 @@ def full_pass_plan(n: int) -> Tuple[int, int, int]:
                 return cs, group, smem
     raise ValueError("full_pass takes planes up to {0}x{0} on the card, got "
                      "{1}x{1}".format(MAX_FULL_PASS_N, n))
+
+
+ROW_DIRECT, ROW_ASYNC, ROW_BULK = 0, 1, 2  # kDirect, kAsync, kBulk
+_CHEAP_BLOCKS_PER_SM = 3  # kCheapBlocksPerSm in csrc/cheap_pass.cu
+_LIGHT_BLOCKS_PER_SM = 2  # kLightBlocksPerSm in csrc/light_augment.cu
+_ROW_CONSUMERS = 7       # kConsumers in csrc/row_ring.cuh: consumer warps
+_ROW_MAX_STAGES = 32     # kMaxStages: stages of a block's ring
+_ROW_BAR_BYTES = 2 * _ROW_MAX_STAGES * 8  # kBarBytes
+_ROW_STATE_BYTES = 10240  # kStateBytes: a kernel's static shared memory
+ROW_GROUP = 32           # kGroup: samples a group of the order
+_ROW_MAX_W = 0x7FFF      # a column table entry's 15-bit x
+_SM_SMEM = 233472        # shared memory of an SM
+_BLOCK_RESERVED_SMEM = 1024  # the system's share of each block's
+H100_SMS = 132
+
+
+class RowPlan(NamedTuple):
+    """A launch of a row kernel (csrc/row_ring.cuh): `grid` blocks, block j
+    taking the units [j N / grid, (j + 1) N / grid) of the N units in
+    `unit_order`; a ring of `stages` shared-memory stages a block, filled
+    in `mode` (ROW_BULK, ROW_ASYNC; ROW_DIRECT: no ring); `smem` dynamic
+    shared-memory bytes a block. The order is the C launch's."""
+    grid: int
+    stages: int
+    mode: int
+    smem: int
+
+
+def row_smem_bytes(n_tab: int, stage_floats: int, stages: int) -> int:
+    """`row_smem_layout` of csrc/row_ring.cuh: the mbarriers, the group's
+    column tables (n_tab ints), then the ring's `stages` stages and each
+    consumer warp's output line, of `stage_floats` floats each (each part
+    rounded up to 4 entries)."""
+    return _ROW_BAR_BYTES + 4 * (
+        _round_up(n_tab, 4)
+        + (stages + _ROW_CONSUMERS) * _round_up(stage_floats, 4))
+
+
+def unit_order(u: int, batch: int, h: int, planes: int = 1
+               ) -> Tuple[int, int, int]:
+    """(sample, row, plane) of unit u of the row kernels' order (`UnitAt`):
+    the samples in groups of ROW_GROUP, within a group of n samples row k
+    is row k // n of the group's sample k % n, each row's `planes` units in
+    a row."""
+    k, c = divmod(u, planes)
+    g0 = k // (ROW_GROUP * h) * ROW_GROUP
+    n = min(ROW_GROUP, batch - g0)
+    local = k - g0 * h
+    return g0 + local % n, local // n, c
+
+
+_ROW_MIN_STAGES = 8  # fewer blocks an SM before a shorter ring than this
+
+
+def row_pass_plan(batch: int, h: int, w: int, planes: int,
+                  stage_floats: int, max_blocks: int, sms: int = H100_SMS,
+                  aligned: bool = True) -> RowPlan:
+    """The launch of a row kernel of B x H x `planes` units whose stage
+    holds `stage_floats` floats, on a card of `sms` SMs: the most blocks an
+    SM (up to `max_blocks`, the kernel's __launch_bounds__) whose ring gets
+    eight stages beside the group's column tables (one int a column and
+    sample) and the consumers' output lines, the most stages (up to 32)
+    that then fit, but no more than a block has units; bulk copies and
+    16-byte stores when W % 4 == 0 and every pointer is 16-byte aligned,
+    4-byte copies otherwise; no ring and no tables (ROW_DIRECT) when one
+    stage does not fit or W passes a table entry's 15 bits. A block's
+    shared memory counts its static part and the system's share."""
+    units = batch * h * planes
+    n_tab = min(batch, ROW_GROUP) * _round_up(w, 4)
+    mode, stages, per_sm = ROW_DIRECT, 0, max_blocks
+    if w <= _ROW_MAX_W:
+        for need in (_ROW_MIN_STAGES, 1):
+            for blocks in range(max_blocks, 0, -1):
+                cap = min(_SM_SMEM // blocks - _BLOCK_RESERVED_SMEM,
+                          _MAX_SMEM) - _ROW_STATE_BYTES
+                fits = [s for s in range(_ROW_MAX_STAGES, need - 1, -1)
+                        if row_smem_bytes(n_tab, stage_floats, s) <= cap]
+                if fits:
+                    mode = ROW_BULK if aligned and w % 4 == 0 else ROW_ASYNC
+                    stages, per_sm = fits[0], blocks
+                    break
+            if mode != ROW_DIRECT:
+                break
+    grid = max(1, min(-(-units // _ROW_CONSUMERS), sms * per_sm))
+    if mode != ROW_DIRECT:  # no more stages than a block has units
+        stages = min(stages, -(-units // grid))
+    smem = row_smem_bytes(0 if mode == ROW_DIRECT else n_tab,
+                          0 if mode == ROW_DIRECT else stage_floats, stages)
+    return RowPlan(grid, stages, mode, smem)
+
+
+def cheap_pass_plan(batch: int, c_tot: int, h: int, w: int,
+                    sms: int = H100_SMS, aligned: bool = True) -> RowPlan:
+    """`row_pass_plan` of csrc/cheap_pass.cu: a unit is an output row of
+    one plane, a stage holds its source row."""
+    return row_pass_plan(batch, h, w, c_tot, w, _CHEAP_BLOCKS_PER_SM, sms,
+                         aligned)
+
+
+def light_plan(batch: int, h: int, w: int, sms: int = H100_SMS,
+               aligned: bool = True) -> RowPlan:
+    """`row_pass_plan` of csrc/light_augment.cu: a unit is an output row, a
+    stage holds its source image row (3W floats) and label row (W)."""
+    return row_pass_plan(batch, h, w, 1, 4 * w, _LIGHT_BLOCKS_PER_SM, sms,
+                         aligned)
+
+
+def _sms_and_alignment(dev: torch.device, tensors: Sequence[torch.Tensor]
+                       ) -> Tuple[int, bool]:
+    """The SM count of `dev`'s card and whether every tensor is 16-byte
+    aligned."""
+    return (torch.cuda.get_device_properties(dev).multi_processor_count,
+            all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def shear_matrices(n: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -677,8 +796,10 @@ def build_library(names: Sequence[str] = KERNEL_SOURCES,
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "full_pass": [_PTR] * 9 + [_I32] * 8 + [_F32] * 6 + [_PTR],
-    "cheap_pass": [_PTR] * 6 + [_I32] * 6 + [_F32] * 6 + [_PTR],
-    "light_augment": [_PTR] * 5 + [_I32] * 4 + [_F32] * 3 + [_PTR],
+    "cheap_pass": [_PTR] * 6 + [_I32] * 6 + [_F32] * 6 + [_I32] * 4
+    + [_PTR],
+    "light_augment": [_PTR] * 5 + [_I32] * 4 + [_F32] * 3 + [_I32] * 4
+    + [_PTR],
 }
 
 
@@ -824,11 +945,13 @@ def cheap_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
     launch = _library("cheap_pass")
     out = torch.empty_like(x)
     b, c_tot, h, w = x.shape
+    plan = cheap_pass_plan(b, c_tot, h, w,
+                           *_sms_and_alignment(x.device, (x, out)))
     with torch.cuda.device(x.device):
         err = launch(
             x.data_ptr(), out.data_ptr(), seeds.data_ptr(), perm.data_ptr(),
             num.data_ptr(), window.data_ptr(), b, c_tot, h, w, c_img,
-            max_shift, *_float_consts(**floats),
+            max_shift, *_float_consts(**floats), *plan,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError("cheap_pass kernel launch failed: cudaError {}"
@@ -880,12 +1003,14 @@ def fused_light_augment(seeds: torch.Tensor, images: torch.Tensor,
         raise ValueError("fused_light_augment runs on cuda or cpu tensors")
     launch = _library("light_augment")
     out_images, out_masks = torch.empty_like(images), torch.empty_like(masks)
+    plan = light_plan(b, h, w, *_sms_and_alignment(
+        images.device, (images, masks, out_images, out_masks)))
     with torch.cuda.device(images.device):
         err = launch(
             images.data_ptr(), masks.data_ptr(), out_images.data_ptr(),
             out_masks.data_ptr(), seeds.data_ptr(), b, h, w, max_shift,
             _f32(prob_original), _f32(noise_mean_sd),
-            _f32(exposure_mean_sd),
+            _f32(exposure_mean_sd), *plan,
             torch.cuda.current_stream(images.device).cuda_stream)
     if err != 0:
         raise RuntimeError("fused_light_augment kernel launch failed: "

@@ -71,6 +71,23 @@ its phases, one line each (or a few):
      must be in flax layout and read back through `restore_checkpoint`.
      Prints the store's build seconds, steps/s over the last 6 steps and
      the peak memory.
+  9. train: the meta-training CLI, `mliis_tpu_torch.cli.run_metasegnet.main`,
+     with run.sh's flags (EfficientLab-b0 rsd=(2, 4) in float32, final
+     dropout 0.5, 224^2, FOMAML* with 10 shots and a tail of 5, 59 inner
+     steps at batch 8, bce_dice + l2, SGD lr 5e-4, aug rate 0.5,
+     transductive, meta step 0.1 annealed to 1e-5) on 8 synthetic tasks
+     (6 train, 2 test), 2 meta-iters, an interval evaluation at step 0
+     and 1 eval sample: exactly 2 x 5 x 58 + 1 x (6 + 2) x 59 +
+     1 x (1 + 2) x 59 = 1,229 `full_pass` launches (derived from the flags
+     and printed) and no other kernel, finite and changed params, the grep
+     line, meta-test_results.json, an ETA line a meta-step, and the newest
+     checkpoint read back equal; then `--pretrained` eval-only from it
+     (3 x 59 = 177 launches, the restored params equal the saved), the
+     UHO branch (2 configs of 5 trace steps on 2 val tasks, then the
+     evaluation at the estimated steps; its CSV) and the k-shot branch
+     (k 1 and 5 at 5 steps on the 2 test tasks; k-shot-results.csv), each
+     with its derived launch count. Prints each run's wall seconds and
+     peak memory, the seconds a meta-step and phase_timings.jsonl.
 Then the `kernels` JSON line (each kernel's launches on the path it
 carries, and on every path; `ms`, `cold_ms` and `bound_share` at the main
 path's size, every size's beside them), the card's name and power limit
@@ -918,6 +935,203 @@ def phase_joint(dev):
     return launches
 
 
+# run.sh's flags (run.sh:9-21) without --fss_1000, --pretrained and
+# --data-dir, cut to 8 synthetic tasks, 2 meta-iters and 1 eval sample.
+TRAIN_ARGV = (
+    "--image_size 224 --rsd 2 4 --l2 --foml --foml-tail 5 "
+    "--final_layer_dropout_rate 0.5 --augment --aug_rate 0.5 --sgd "
+    "--loss_name bce_dice --inner-batch 8 --learning-rate 0.0005 "
+    "--train-shots 10 --inner-iters 59 --learning_rate_scheduler fixed "
+    "--meta-batch 5 --serially_eval_all_test_tasks --shots 5 --eval-batch 8 "
+    "--eval-iters 59 --transductive --model_name efficientlab "
+    "--meta-step 0.1 --meta-step-final 0.00001 --chain_tasks "
+    "--chain_eval_chunk --task_chunk_size 8 --synthetic --synthetic_tasks 8 "
+    "--meta-iters 2 --eval-interval 2 --eval-samples 1 --seed 0").split()
+UHO_ARGV = ("--pretrained --optimize_update_hyperparms_on_val_set "
+            "--num_val_tasks 2 --num_configs_to_sample 2 --min_steps 1 "
+            "--max_steps 5 --fss_1000").split()
+KSHOT_ARGV = ("--pretrained --run_k_shot_learning_curves_experiment "
+              "--k_shot_k_range 1 5 --eval-iters 5").split()
+
+
+def _expected_train_launches(args, n_train, n_test):
+    """`full_pass` launches of a training run of the CLI, from its flags:
+    each meta-step task adapts inner_iters - 1 augmented steps (FOMAML*'s
+    last step is the raw tail); an interval evaluation adapts every
+    sampled train and test task (up to the loop's 100) for eval_iters
+    steps; the final evaluation 1 train task and every test task, each
+    eval_samples times. Returns (total, its terms as text)."""
+    meta = args.meta_iters * args.meta_batch * (args.inner_iters - 1)
+    intervals = len(range(0, args.meta_iters, args.eval_interval))
+    interval = intervals * (min(100, n_train) + min(100, n_test)) \
+        * args.eval_iters
+    final = args.eval_samples * (1 + n_test) * args.eval_iters
+    return meta + interval + final, (
+        "{} x {} x {} + {} x ({} + {}) x {} + {} x (1 + {}) x {}".format(
+            args.meta_iters, args.meta_batch, args.inner_iters - 1,
+            intervals, min(100, n_train), min(100, n_test), args.eval_iters,
+            args.eval_samples, n_test, args.eval_iters))
+
+
+def _run_cli(argv, dev, cwd=None):
+    """run_metasegnet.main on the card with the counts at 0 just before;
+    returns (state, stdout, launches, wall seconds, peak bytes)."""
+    import contextlib
+    import torch
+    from mliis_tpu_torch.cli import run_metasegnet
+    tee = _Tee(sys.stdout)
+    here = os.getcwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.time()
+    try:
+        if cwd is not None:
+            os.chdir(cwd)
+        with contextlib.redirect_stdout(tee):
+            state = run_metasegnet.main(argv, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(here)
+    return (state, "".join(tee.parts), read_launches(), time.time() - t0,
+            torch.cuda.max_memory_allocated(dev))
+
+
+def phase_train(dev):
+    """The meta-training CLI, `mliis_tpu_torch.cli.run_metasegnet.main`, at
+    full width with run.sh's flags on 8 synthetic tasks (6 train, 2 test):
+    2 meta-steps, an interval evaluation at step 0, checkpoints at steps 0
+    and 1, the final evaluation; then --pretrained eval-only from its
+    checkpoint, the UHO branch and the k-shot branch at a smaller depth.
+    Each run's `full_pass` launches must equal the count derived from its
+    flags (and, for UHO, the steps it printed); no other kernel runs.
+    Returns {run: launches}."""
+    import shutil
+    import tempfile
+    import torch
+    from mliis_tpu_torch.cli import args as args_lib
+    from mliis_tpu_torch.models.efficientlab import EfficientLab
+    from mliis_tpu_torch.utils import checkpoint as ckpt
+    workdir = tempfile.mkdtemp(prefix="train_smoke_")
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    argv = TRAIN_ARGV + ["--checkpoint", ckpt_dir]
+    args = args_lib.argument_parser().parse_args(argv)
+    n_test = max(args.synthetic_tasks // 4, 1)
+    counts, failed = {}, []
+
+    def check(run, launches, full_pass, ok, text):
+        expect = {"full_pass": full_pass, "cheap_pass": 0,
+                  "fused_light_augment": 0}
+        counts[run] = launches
+        log("{}: {} | launches {} (expect {})".format(run, text, launches,
+                                                      expect))
+        if launches != expect or not ok:
+            failed.append(run)
+
+    try:
+        state, out, launches, wall, peak = _run_cli(argv, dev)
+        expect, terms = _expected_train_launches(
+            args, args.synthetic_tasks - n_test, n_test)
+        with open(os.path.join(ckpt_dir, "phase_timings.jsonl")) as f:
+            timings = json.loads(f.readline())
+        init = EfficientLab(**args_lib.model_kwargs(args))
+        init.reset_parameters(torch.Generator().manual_seed(args.seed))
+        start = dict(init.named_parameters())
+        finite = all(bool(v.isfinite().all()) for v in state.params.values())
+        moved = sum(float((v.cpu() - start[k].detach()).abs().sum())
+                    for k, v in state.params.items())
+        restored, meta = ckpt.restore_checkpoint(ckpt_dir, state)
+        readable = meta.get("step") == args.meta_iters - 1 and all(
+            torch.equal(restored.params[k], v)
+            for k, v in state.params.items()) and all(
+            torch.equal(restored.batch_stats[k], v)
+            for k, v in state.batch_stats.items())
+        grep = [ln for ln in out.splitlines()
+                if ln.startswith("Mean IoU over all meta-test tasks:")]
+        results = os.path.exists(os.path.join(ckpt_dir,
+                                              "meta-test_results.json"))
+        eta = out.count("Estimated training hours remaining:")
+        log("train: phase_timings.jsonl {}".format(json.dumps(timings)))
+        check("train", launches, expect,
+              finite and moved > 0 and readable and len(grep) == 1
+              and results and eta == args.meta_iters,
+              "b0 rsd={} float32, {}^2, {} train + {} test tasks | wall "
+              "{:.2f} s | {:.3f} s a meta-step (mean of {}) | interval "
+              "evaluation {:.2f} s | {} | params finite {} | sum |d params| "
+              "{:.4g} | newest checkpoint (step {}) reads back {} | "
+              "results json {} | ETA lines {} | peak memory {:.2f} GB | "
+              "expected launches {} = {}".format(
+                  tuple(args.rsd), args.image_size,
+                  args.synthetic_tasks - n_test, n_test,
+                  wall, timings["meta_step"]["mean_s"],
+                  timings["meta_step"]["count"],
+                  timings["eval_train"]["total_s"]
+                  + timings["eval_test"]["total_s"],
+                  grep[0] if grep else "no grep line", finite, moved,
+                  meta.get("step"), readable, results, eta, peak / 1e9,
+                  expect, terms))
+
+        restored, out, launches, wall, peak = _run_cli(
+            argv + ["--pretrained"], dev)
+        equal = all(torch.equal(restored.params[k], v)
+                    for k, v in state.params.items())
+        expect = args.eval_samples * (1 + n_test) * args.eval_iters
+        check("train[eval-only]", launches, expect,
+              equal and "Mean IoU over all meta-test tasks:" in out,
+              "--pretrained | wall {:.2f} s | restored params equal the "
+              "saved {} | peak memory {:.2f} GB".format(wall, equal,
+                                                        peak / 1e9))
+
+        uho_args = args_lib.argument_parser().parse_args(argv + UHO_ARGV)
+        _, out, launches, wall, peak = _run_cli(argv + UHO_ARGV, dev)
+        steps = int(re.search(r"UHO estimated lr=\S+ steps=(\d+)",
+                              out).group(1))
+        csv_path = os.path.join(
+            ckpt_dir, "val-set_hyper_param_search_results_5-shot.csv")
+        with open(csv_path) as f:
+            rows = f.read().splitlines()
+        n_val = uho_args.num_val_tasks
+        splits = 1 if uho_args.fss_1000 else 4
+        expect = (uho_args.num_configs_to_sample * splits * n_val
+                  * uho_args.max_steps
+                  + args.eval_samples * (1 + n_test) * steps)
+        check("train[uho]", launches, expect,
+              len(rows) == 1 + uho_args.num_configs_to_sample * splits
+              * n_val,
+              "wall {:.2f} s | estimated steps {} | {} CSV rows | expected "
+              "{} x {} x {} x {} trace steps + {} x (1 + {}) x {} | peak "
+              "memory {:.2f} GB".format(
+                  wall, steps, len(rows) - 1, uho_args.num_configs_to_sample,
+                  splits, n_val, uho_args.max_steps, args.eval_samples,
+                  n_test, steps, peak / 1e9))
+
+        kshot_args = args_lib.argument_parser().parse_args(argv + KSHOT_ARGV)
+        _, out, launches, wall, peak = _run_cli(argv + KSHOT_ARGV, dev,
+                                                cwd=workdir)
+        # meta/kshot.py's k_eff for a synthetic task of 10 examples: 9
+        # query images leave k_eff = 1, below early stopping's 10, so each
+        # (task, k) adapts eval_iters steps.
+        count = 10
+        query = min(20, max(count - 1, 1))
+        per_k = [min(k, max(count - query, 1))
+                 for k in kshot_args.k_shot_k_range]
+        expect = (args.eval_samples * n_test * len(per_k)
+                  * kshot_args.eval_iters)
+        with open(os.path.join(workdir, "k-shot-results.csv")) as f:
+            rows = f.read().splitlines()
+        check("train[k-shot]", launches, expect,
+              all(k < 10 for k in per_k) and "early stopping" not in out
+              and len(rows) == 1 + n_test * len(per_k),
+              "wall {:.2f} s | k_eff {} | {} CSV rows | peak memory {:.2f} "
+              "GB".format(wall, per_k, len(rows) - 1, peak / 1e9))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if failed:
+        raise AssertionError("the training CLI did not run as expected: "
+                             "{}".format(", ".join(failed)))
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -950,6 +1164,7 @@ def main() -> int:
     by_path = {"slice": phase_slice(dev)}
     by_path.update(phase_eval(dev))
     by_path["joint"] = phase_joint(dev)
+    by_path.update(phase_train(dev))
     # Each kernel's `launches` is read from the path it carries: the
     # meta-step for full_pass, the split-route evaluation for cheap_pass,
     # the joint run for fused_light_augment; every path's counts beside.

@@ -13,6 +13,15 @@ _DIRNAME = os.path.dirname(os.path.abspath(__file__))
 
 IMAGE_DIMS = 224  # Side length of (square) FSS-1000 images.
 
+# FP-k tasks are unions of synonym classes.
+DEFAULT_K_SHOT_SET = [
+    {"airliner", "aeroplane"},
+    {"bus"},
+    {"motorbike"},
+    {"potted_plant", "potted plant"},
+    {"television", "tvmonitor"},
+]
+
 
 def _read_manifest(name: str) -> List[str]:
     with open(os.path.join(_DIRNAME, name), "r") as f:
@@ -45,3 +54,15 @@ def split_train_test_tasks(all_tasks: Sequence[str], n_test: int,
     test_set = [all_tasks.pop() for _ in range(n_test)]
     assert_train_test_split(all_tasks, test_set)
     return all_tasks, test_set
+
+
+def partition_by_test_ids(task_names: Sequence[str],
+                          test_task_ids: Sequence[str]
+                          ) -> Tuple[List[str], List[str]]:
+    """(train, test) names by membership in `test_task_ids`, in the order
+    of `task_names`."""
+    test_ids = set(test_task_ids)
+    train, test = [], []
+    for name in task_names:
+        (test if name in test_ids else train).append(name)
+    return train, test

@@ -1,19 +1,22 @@
 """Episodic task store: every task stacked into aligned, padded uint8 arrays.
 
-A copy of the JAX package's `TaskStore` and its loader. The arrays are
-numpy; `to_torch` puts them on the device. Shards are read through the
-Python tfrecord codec (`data/tfrecord.py`) or from npz; the JAX package's
-native C++ loader is not ported (ROADMAP.md).
+A copy of the JAX package's `TaskStore`, its loader and the CLIs'
+dataset checks: the FSS-1000 train/val/test split, the train/test leakage
+checks (task names, and sha-256 of the images on request) and the FP-k
+synonym unions. The arrays are numpy; `to_torch` puts them on the device.
+Shards are read through the Python tfrecord codec (`data/tfrecord.py`) or
+from npz; the JAX package's native C++ loader is not ported (ROADMAP.md).
 """
 import dataclasses
 import glob
+import hashlib
 import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from mliis_tpu_torch.data import tfrecord
+from mliis_tpu_torch.data import manifests, tfrecord
 from mliis_tpu_torch.device import resolve_device
 
 SHARD_SUFFIXES = (".tfrecord.gzip", ".tfrecord", ".npz")
@@ -140,3 +143,83 @@ def load_task_store(data_dir: str, image_size: int = 224,
     order = np.argsort(names)
     return TaskStore.from_task_arrays([tasks[i] for i in order],
                                       [names[i] for i in order], max_examples)
+
+
+def split_fss_1000(store: TaskStore, num_val_tasks: int = 0,
+                   test_task_ids: Optional[Sequence[str]] = None
+                   ) -> Tuple[TaskStore, Optional[TaskStore], TaskStore]:
+    """The deterministic FSS-1000 (train, val, test) split: test tasks by
+    membership in `test_task_ids` (default the 240-task manifest), then
+    `num_val_tasks` val tasks popped off the sorted remainder."""
+    if test_task_ids is None:
+        test_task_ids = manifests.TEST_TASK_IDS
+    train_names, test_names = manifests.partition_by_test_ids(
+        store.names, test_task_ids)
+    train_names, val_names = manifests.split_train_test_tasks(
+        train_names, num_val_tasks, reproducible_splits=True)
+    train = store.subset_by_names(train_names)
+    val = store.subset_by_names(val_names) if val_names else None
+    return train, val, store.subset_by_names(test_names)
+
+
+def image_hashes(store: TaskStore) -> set:
+    """sha-256 hex digests of every valid image's bytes."""
+    return {hashlib.sha256(store.images[t, i].tobytes()).hexdigest()
+            for t in range(store.num_tasks)
+            for i in range(int(store.counts[t]))}
+
+
+def assert_train_test_split(train: Optional[TaskStore], test: TaskStore,
+                            check_image_hashes: bool = False) -> None:
+    """No task name in both stores; with `check_image_hashes`, no image in
+    both either."""
+    if train is None:
+        return
+    overlap = set(train.names) & set(test.names)
+    if overlap:
+        raise AssertionError("train/test task names overlap: {}".format(
+            sorted(overlap)[:5]))
+    if check_image_hashes:
+        leaked = image_hashes(train) & image_hashes(test)
+        if leaked:
+            raise AssertionError("{} identical images appear in both train "
+                                 "and test".format(len(leaked)))
+
+
+def validate_datasets(train: Optional[TaskStore], val: Optional[TaskStore],
+                      test: TaskStore, pretrained: bool = False,
+                      run_k_shot_experiment: bool = False,
+                      eval_val_tasks: bool = False) -> None:
+    """A training run needs training tasks; every run needs test tasks."""
+    if not pretrained and not run_k_shot_experiment and (
+            train is None or train.num_tasks == 0):
+        raise AssertionError("Training set must have examples.")
+    if test.num_tasks == 0:
+        raise AssertionError("Test set must have examples.")
+    if eval_val_tasks and val is not None and val.num_tasks == 0:
+        raise ValueError("Val set has no tasks to evaluate")
+
+
+def union_tasks_by_synonyms(store: TaskStore,
+                            synonym_sets=None) -> TaskStore:
+    """FP-k tasks: each synonym set's matching tasks (a synonym, spaces
+    removed, contained in the task name) pooled into one task named after
+    the set's first synonym in sorted order; sets that match nothing are
+    left out."""
+    if synonym_sets is None:
+        synonym_sets = manifests.DEFAULT_K_SHOT_SET
+    tasks, names = [], []
+    for synonyms in synonym_sets:
+        ordered = [s.replace(" ", "") for s in sorted(synonyms)]
+        member_idx = sorted({j for synonym in ordered
+                             for j, n in enumerate(store.names)
+                             if synonym in n})
+        if not member_idx:
+            continue
+        tasks.append((
+            np.concatenate([store.images[j, :store.counts[j]]
+                            for j in member_idx]),
+            np.concatenate([store.masks[j, :store.counts[j]]
+                            for j in member_idx])))
+        names.append(ordered[0])
+    return TaskStore.from_task_arrays(tasks, names)

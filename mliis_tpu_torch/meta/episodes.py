@@ -87,6 +87,10 @@ def replacement_batch_indices(generator: torch.Generator, n: int,
 def batch_indices(generator: torch.Generator, n: int, batch_size: int,
                   num_batches: int, replacement: bool = False,
                   device=None) -> torch.Tensor:
+    """[num_batches, batch_size] indices into n examples; [0, batch_size]
+    for no batches (a FOMAML* task of one inner step)."""
+    if num_batches == 0:
+        return torch.zeros((0, batch_size), dtype=torch.long, device=device)
     if replacement:
         return replacement_batch_indices(generator, n, batch_size,
                                          num_batches, device)
@@ -96,17 +100,19 @@ def batch_indices(generator: torch.Generator, n: int, batch_size: int,
 def assemble_batch(support_images_u8: torch.Tensor,
                    support_masks_u8: torch.Tensor, idx: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
-                   aug_rate: Optional[float] = None, augment: bool = True
+                   aug_rate: Optional[float] = None, augment: bool = True,
+                   kernels: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather one inner-loop batch and augment it.
 
     support_images_u8 [S, H, W, 3] uint8, support_masks_u8 [S, H, W] uint8,
     idx [B]. aug_rate is the probability to augment a sample; None uses the
-    Augmenter default gate 6/7. Returns float32 images [B, H, W, 3] in
-    [0, 255] and one-hot masks [B, H, W, 2]."""
+    Augmenter default gate 6/7; `kernels=False` augments with the kernels'
+    plain versions. Returns float32 images [B, H, W, 3] in [0, 255] and
+    one-hot masks [B, H, W, 2]."""
     images = support_images_u8[idx].float()
     masks = onehot_mask(support_masks_u8[idx])
     if not augment:
         return images, masks
     prob_original = None if aug_rate is None else 1.0 - aug_rate
-    return augment_batch(generator, images, masks, prob_original)
+    return augment_batch(generator, images, masks, prob_original, kernels)

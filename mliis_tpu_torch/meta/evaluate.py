@@ -50,6 +50,8 @@ class EvalConfig:
     transductive: bool = False
     augment: bool = True
     precompute_augment: bool = False
+    # None or True: the augmentation kernels; False: their plain versions.
+    pallas_augment: Optional[bool] = None
     lr_scheduler: str = "fixed"
     lr_decay_rate: float = 0.5
     lr_decay_after_n_steps: int = 5
@@ -92,7 +94,8 @@ def make_adapt_and_predict_fn(model: torch.nn.Module,
     adapt = make_adapt_fn(model, loss_config, opt_config,
                           weight_decay_rate=config.weight_decay_rate,
                           augment=config.augment,
-                          precompute_augment=config.precompute_augment)
+                          precompute_augment=config.precompute_augment,
+                          pallas_augment=config.pallas_augment)
 
     def predict(support_images, query_images, generator):
         if not config.use_batch_stats_at_predict:

@@ -18,7 +18,8 @@ the gradient is taken.
 Augmentation has one route, `full_pass` (the kernel on the card, its plain
 version on the CPU), for the in-loop and the precomputed path alike; the
 JAX package resolves its `pallas_augment=None` per path and hands the
-precompute path the unresolved value.
+precompute path the unresolved value. `pallas_augment=False` takes the
+plain version on any device.
 """
 import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
@@ -33,8 +34,16 @@ Tree = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
+    """The loss flags (`ops/losses.segmentation_loss`). `remat` is the JAX
+    package's activation rematerialization, a memory trade that changes no
+    result: it is accepted, and the port keeps its activations."""
+    label_smoothing: float = 0.0
     dice: bool = True           # bce_dice when True, plain CE otherwise
+    binary_iou_loss: bool = True
     l2: bool = True
+    l1: bool = False
+    darc1: bool = False
+    remat: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,8 +128,11 @@ def make_loss_and_grad(model: torch.nn.Module, loss_config: LossConfig):
                               final_layer_dropout_rate=drop_rate,
                               generator=generator)
         loss = losses_lib.segmentation_loss(
-            logits, probs, masks, params, dice=loss_config.dice,
-            l2=loss_config.l2)
+            logits, probs, masks, params,
+            label_smoothing=loss_config.label_smoothing,
+            dice=loss_config.dice,
+            binary_iou_loss=loss_config.binary_iou_loss, l2=loss_config.l2,
+            l1=loss_config.l1, darc1=loss_config.darc1)
         grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), grads
 
@@ -147,7 +159,8 @@ def sgd_step(model: torch.nn.Module, loss_config: LossConfig,
 def make_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
                   opt_config: OptimizerConfig,
                   weight_decay_rate: float = 1.0, augment: bool = True,
-                  precompute_augment: bool = False) -> Callable:
+                  precompute_augment: bool = False,
+                  pallas_augment: Optional[bool] = None) -> Callable:
     """Builds adapt(state, support_images_u8, support_masks_u8, idx_matrix,
     generator, lrs, drop_rate=None, aug_rate=None) -> (adapted ModelState,
     per-step losses [steps]).
@@ -155,7 +168,9 @@ def make_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
     idx_matrix: [steps, batch] indices into the support set; lrs: [steps]
     learning rates. precompute_augment=True augments every step's batch
     before the loop and stages it in bf16 (the JAX package's memory-bound
-    variant); the default augments inside each step."""
+    variant); the default augments inside each step. pallas_augment None
+    or True augments through the kernels' wrappers, False through their
+    plain versions."""
     step_fn = sgd_step(model, loss_config, opt_config, weight_decay_rate)
 
     def adapt(state: ModelState, support_images_u8, support_masks_u8,
@@ -168,7 +183,8 @@ def make_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
         def batch(i):
             return episodes.assemble_batch(
                 support_images_u8, support_masks_u8, idx_matrix[i],
-                generator, aug_rate=aug_rate, augment=augment)
+                generator, aug_rate=aug_rate, augment=augment,
+                kernels=pallas_augment is not False)
 
         staged = None
         if precompute_augment and augment:
@@ -182,6 +198,8 @@ def make_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
                 images, masks = (t.float() for t in staged[i])
             opt, loss = step_fn(opt, images, masks, generator, lr, drop_rate)
             losses.append(loss)
+        if not losses:   # zero steps: a FOMAML* task of one inner step
+            return snapshot(model, opt), torch.zeros(0)
         return snapshot(model, opt), torch.stack(losses)
 
     return adapt

@@ -43,6 +43,8 @@ class MetaTrainConfig:
     aug_rate: Optional[float] = None  # None -> Augmenter default gate (6/7)
     weight_decay_rate: float = 1.0
     precompute_augment: bool = False
+    # None or True: the augmentation kernels; False: their plain versions.
+    pallas_augment: Optional[bool] = None
     lr_scheduler: str = "fixed"
     lr_decay_rate: float = 0.5
     lr_decay_after_n_steps: int = 5
@@ -110,7 +112,8 @@ def make_per_task_fn(model, loss_config: LossConfig,
     adapt = make_adapt_fn(model, loss_config, opt_config,
                           weight_decay_rate=config.weight_decay_rate,
                           augment=config.augment,
-                          precompute_augment=config.precompute_augment)
+                          precompute_augment=config.precompute_augment,
+                          pallas_augment=config.pallas_augment)
 
     def lr_array(lr):
         return make_lr_array(lr, config.inner_iters, config.lr_scheduler,

@@ -23,8 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from mliis_tpu_torch.ops import augment_kernels
 from mliis_tpu_torch.ops.augment_kernels import (NUM_OPS, ROTATE_OP,
-                                                 cheap_pass, full_pass,
                                                  rotate_shear_planar)
 
 NUM_ROTATE_MODES = 4  # reflect, constant, mirror, wrap
@@ -46,7 +46,8 @@ def from_planar(x: torch.Tensor, c_img: int
 
 def augment_batch(generator: torch.Generator, images: torch.Tensor,
                   masks: torch.Tensor,
-                  prob_to_return_original: Optional[float] = None
+                  prob_to_return_original: Optional[float] = None,
+                  kernels: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sample random augmentation of float NHWC (images, masks).
 
@@ -55,7 +56,8 @@ def augment_batch(generator: torch.Generator, images: torch.Tensor,
     random permutation of the six ops is applied, by one `full_pass` where
     PALLAS_FUSED_SINGLE_LAUNCH holds and H == W, else by the split route. A sample that passes through gets prefix length 0, so
     the kernels do no work for it (the JAX package computes it and discards
-    it)."""
+    it). `kernels=False` takes the kernels' plain versions on any device
+    (`--pallas_augment off`); the draws are the same."""
     if prob_to_return_original is None:
         prob_to_return_original = 1.0 / (NUM_OPS + 1)
     b, h, w, c_img = images.shape
@@ -78,6 +80,12 @@ def augment_batch(generator: torch.Generator, images: torch.Tensor,
     perm = perm.contiguous()
     num = torch.where(skip, 0, randint(1, NUM_OPS + 1, (b,)))
     x = to_planar(images, masks)
+    if kernels:
+        full_pass = augment_kernels.full_pass
+        cheap_pass = augment_kernels.cheap_pass
+    else:
+        full_pass = augment_kernels.full_pass_reference
+        cheap_pass = augment_kernels.cheap_pass_reference
     if PALLAS_FUSED_SINGLE_LAUNCH and h == w:
         seeds = randint(0, 2 ** 31 - 1, (b,))
         out = full_pass(seeds, x, perm, num, rot_draws(), c_img=c_img)

@@ -46,3 +46,8 @@ def tree_weight_decay(tree: Tree, rate) -> Tree:
 def tree_zeros_like(tree: Tree) -> Tree:
     return tree_map(torch.zeros_like, tree)
 
+
+
+def tree_count_params(tree: Tree) -> int:
+    """Number of scalars in the tree."""
+    return sum(int(x.numel()) for x in tree.values())

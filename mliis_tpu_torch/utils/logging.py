@@ -1,5 +1,6 @@
 """Metrics logging: every scalar to an append-only JSONL stream
-(`<name>_metrics.jsonl`) and, when tensorboardX imports, to TensorBoard."""
+(`<name>_metrics.jsonl`) and, when tensorboardX imports, to TensorBoard;
+and the training loop's per-meta-step time line."""
 import json
 import os
 import time
@@ -29,3 +30,16 @@ class MetricsWriter:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+def log_estimated_time_remaining(start_time: float, cur_step: int,
+                                 total_steps: int,
+                                 unit_name: str = "meta-step",
+                                 log_fn=print) -> float:
+    """Log the minutes since `start_time` and the hours the remaining
+    steps would take at that rate; returns the minutes."""
+    elapsed = (time.time() - start_time) / 60.0
+    log_fn("This {} took: {} minutes.".format(unit_name, elapsed))
+    log_fn("Estimated training hours remaining:%.4f"
+           % ((total_steps - cur_step) * elapsed / 60.0))
+    return elapsed

@@ -1,0 +1,59 @@
+"""Phase timing for the training and evaluation loops.
+
+The port of the JAX package's `utils/profiling.py`:
+  - `annotate(name)`: a `torch.profiler.record_function` range, so a phase
+    shows up on a profiler timeline;
+  - `PhaseTimer`: wall-clock seconds accumulated per named phase, with a
+    JSONL export. On a CUDA device a phase ends with a
+    `torch.cuda.synchronize`, so it holds the device's time and not the
+    time to enqueue the work (the JAX package's `train_gecko` blocks on
+    the state for the same reason).
+Whole-run traces (`--profile_dir`) are not ported (ROADMAP.md).
+"""
+import contextlib
+import json
+import time
+from collections import defaultdict
+from typing import Dict, Iterator, Optional
+
+import torch
+
+
+def annotate(name: str):
+    """Named range on profiler timelines."""
+    return torch.profiler.record_function(name)
+
+
+class PhaseTimer:
+    """Accumulates wall-clock per named phase; `device` is the device whose
+    work a phase waits for at its end (None or a CPU device: no wait)."""
+
+    def __init__(self, device: Optional[torch.device] = None):
+        self.device = None if device is None else torch.device(device)
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        start = time.perf_counter()
+        try:
+            with annotate(name):
+                yield
+                if self.device is not None and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        finally:
+            self.totals[name] += time.perf_counter() - start
+            self.counts[name] += 1
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        return {name: {"total_s": self.totals[name],
+                       "count": self.counts[name],
+                       "mean_s": self.totals[name] / max(self.counts[name], 1)}
+                for name in self.totals}
+
+    def dump(self, path: Optional[str] = None, log_fn=print) -> None:
+        payload = json.dumps(self.summary(), sort_keys=True)
+        if path is not None:
+            with open(path, "a") as f:
+                f.write(payload + "\n")
+        log_fn("phase timings: {}".format(payload))

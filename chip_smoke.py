@@ -88,6 +88,25 @@ its phases, one line each (or a few):
      (k 1 and 5 at 5 steps on the 2 test tasks; k-shot-results.csv), each
      with its derived launch count. Prints each run's wall seconds and
      peak memory, the seconds a meta-step and phase_timings.jsonl.
+  10. decoders: the `train` phase's synthetic store written as tfrecord
+     shards and read back by `load_task_store` (prints whether
+     native/libtfrecord_loader.so loaded and which reader ran); then the
+     `train` run with `--spatial_pyramid_pooling --skip_decoding` cut to 1
+     meta-iter: exactly 1 x 5 x 58 + 1 x (6 + 2) x 59 + 1 x (1 + 2) x 59
+     = 939 `full_pass` launches and no other kernel, finite and changed
+     params, the newest checkpoint holding the ASPP and skip-decoder keys
+     and reading back equal, and the skip decoder's running stats
+     unchanged by an eval-mode forward; then `--pretrained` eval-only
+     (177 launches) writing the fine-tuned checkpoints of the train and
+     the test evaluation (one a (task, sample), each read back and
+     different from the meta-learned state) and the serving artifact
+     (loaded with `torch.export.load`, the module's eval probabilities
+     within 1e-5 at batch 1 and 5); then a run under `--profile_dir` on 2
+     tasks (1 meta-iter of 1 task, 3 inner and 3 eval steps: 14
+     launches) whose gzipped Chrome trace must parse and hold one
+     `full_pass` kernel event a launch and the `meta_step`, `eval_train`
+     and `eval_test` ranges. Prints each run's wall seconds, seconds a
+     meta-step, peak memory and the trace's size.
 Then the `kernels` JSON line (each kernel's launches on the path it
 carries, and on every path; `ms`, `cold_ms` and `bound_share` at the main
 path's size, every size's beside them), the card's name and power limit
@@ -1132,6 +1151,217 @@ def phase_train(dev):
     return counts
 
 
+# The `train` phase's run with EfficientLab's ASPP and skip decoding, cut to
+# 1 meta-iter; then a short run under the profiler on 2 tasks.
+DECODER_ARGV = ["--spatial_pyramid_pooling", "--skip_decoding",
+                "--meta-iters", "1"]
+PROFILE_ARGV = ("--synthetic_tasks 2 --meta-iters 1 --meta-batch 1 "
+                "--inner-iters 3 --eval-iters 3 --eval-samples 1").split()
+DECODER_KEYS = ("params/spatial_pyramid_pooling/branch_0/kernel",
+                "params/spatial_pyramid_pooling/fuse/kernel",
+                "params/decode_skip_proj/kernel",
+                "params/sep_conv_0/depthwise_conv/kernel",
+                "params/sep_conv_1/pointwise_conv/kernel",
+                "batch_stats/decode_skip_batch_normalization/mean",
+                "batch_stats/sep_conv_1/batch_normalization_1/var")
+
+
+def _tfrecord_reader(workdir, args):
+    """The synthetic store written as tfrecord shards and read back by
+    `load_task_store` (which prints the reader it used): whether the
+    native library loaded, whether the arrays match, the store's names."""
+    import numpy as np
+    from mliis_tpu_torch.data import native_loader
+    from mliis_tpu_torch.data.synthetic import make_synthetic_store
+    from mliis_tpu_torch.data.task_store import load_task_store
+    store = make_synthetic_store(num_tasks=args.synthetic_tasks,
+                                 examples_per_task=10,
+                                 image_size=args.image_size, seed=args.seed)
+    shard_dir = os.path.join(workdir, "shards")
+    os.makedirs(shard_dir)
+    for i, name in enumerate(store.names):
+        c = int(store.counts[i])
+        native_loader.write_shard(
+            os.path.join(shard_dir, name + ".tfrecord.gzip"),
+            store.images[i, :c], store.masks[i, :c])
+    loaded = load_task_store(shard_dir, image_size=args.image_size)
+    order = [store.names.index(n) for n in loaded.names]
+    same = (np.array_equal(loaded.images, store.images[order])
+            and np.array_equal(loaded.masks, store.masks[order]))
+    return native_loader.native_loader_available(), same, store.names
+
+
+def phase_decoders(dev):
+    """The meta-training CLI with `--spatial_pyramid_pooling
+    --skip_decoding` at the `train` phase's width (run.sh's flags, 8
+    synthetic tasks) cut to 1 meta-iter; then `--pretrained` eval-only from
+    its checkpoint, writing the fine-tuned checkpoints of the train and
+    the test evaluation and the serving artifact; then a short run under
+    `--profile_dir`. Each run's `full_pass` launches must equal the count
+    derived from its flags, with no other kernel; the checkpoints must
+    hold the decoders' keys and read back; the skip decoder's running
+    stats must not move in an eval-mode forward; the artifact must give
+    the module's probabilities at batch 1 and 5; the trace must hold a
+    `full_pass` kernel event per launch and the phases' ranges. Returns
+    {run: launches}."""
+    import glob
+    import gzip
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mliis_tpu_torch.cli import args as args_lib
+    from mliis_tpu_torch.meta.inner_loop import load_state
+    from mliis_tpu_torch.models.efficientlab import EfficientLab
+    from mliis_tpu_torch.utils import checkpoint as ckpt
+    t0 = time.time()
+    workdir = tempfile.mkdtemp(prefix="decoders_smoke_")
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    argv = TRAIN_ARGV + DECODER_ARGV + ["--checkpoint", ckpt_dir]
+    args = args_lib.argument_parser().parse_args(argv)
+    n_test = max(args.synthetic_tasks // 4, 1)
+    counts, failed = {}, []
+
+    def check(run, launches, full_pass, ok, text):
+        expect = {"full_pass": full_pass, "cheap_pass": 0,
+                  "fused_light_augment": 0}
+        counts[run] = launches
+        log("{}: {} | launches {} (expect {})".format(run, text, launches,
+                                                      expect))
+        if launches != expect or not ok:
+            failed.append(run)
+
+    try:
+        native, same, names = _tfrecord_reader(workdir, args)
+        log("decoders[data]: native/libtfrecord_loader.so loaded {} | "
+            "load_task_store read the tfrecord shards with the {} reader | "
+            "arrays equal the written store {}".format(
+                native, "native" if native else "Python", same))
+        if not same:
+            failed.append("decoders[data]")
+
+        state, out, launches, wall, peak = _run_cli(argv, dev)
+        expect, terms = _expected_train_launches(
+            args, args.synthetic_tasks - n_test, n_test)
+        with open(os.path.join(ckpt_dir, "phase_timings.jsonl")) as f:
+            timings = json.loads(f.readline())
+        model = EfficientLab(**args_lib.model_kwargs(args))
+        model.reset_parameters(torch.Generator().manual_seed(args.seed))
+        start = {k: v.detach().clone() for k, v in model.named_parameters()}
+        finite = all(bool(v.isfinite().all()) for v in state.params.values())
+        moved = sum(float((v.cpu() - start[k]).abs().sum())
+                    for k, v in state.params.items())
+        newest = ckpt.latest_checkpoint(ckpt_dir)
+        with np.load(newest) as z:
+            keys = all(k in z.files for k in DECODER_KEYS)
+        restored, _ = ckpt.restore_checkpoint(newest, state)
+        readable = all(torch.equal(restored.params[k], v)
+                       for k, v in state.params.items()) and all(
+            torch.equal(restored.batch_stats[k], v)
+            for k, v in state.batch_stats.items())
+        model.to(dev)
+        load_state(model, state)
+        before = {k: b.clone() for k, b in model.named_buffers()}
+        x = torch.rand((4, args.image_size, args.image_size, 3),
+                       generator=torch.Generator(device=dev).manual_seed(5),
+                       device=dev) * 255
+        with torch.no_grad():
+            model(x, train=False)
+        still = all(torch.equal(b, before[k])
+                    for k, b in model.named_buffers())
+        check("decoders", launches, expect,
+              finite and moved > 0 and keys and readable and still
+              and "Mean IoU over all meta-test tasks:" in out,
+              "b0 rsd={} ASPP + skip decoding float32, {}^2, {} params | "
+              "wall {:.2f} s | {:.3f} s a meta-step | interval evaluation "
+              "{:.2f} s ({} tasks) | params finite {} | sum |d params| "
+              "{:.4g} | checkpoint holds the decoders' keys {} and reads "
+              "back {} | skip-decoder stats unchanged by an eval forward "
+              "{} | peak memory {:.2f} GB | expected launches {} = {}".format(
+                  tuple(args.rsd), args.image_size,
+                  sum(v.numel() for v in state.params.values()), wall,
+                  timings["meta_step"]["mean_s"],
+                  timings["eval_train"]["total_s"]
+                  + timings["eval_test"]["total_s"], args.synthetic_tasks,
+                  finite, moved, keys, readable, still, peak / 1e9, expect,
+                  terms))
+
+        ft_dir = os.path.join(workdir, "fine_tuned")
+        artifact = os.path.join(workdir, "serving.pt2")
+        _, out, launches, wall, peak = _run_cli(
+            argv + ["--pretrained", "--save_fine_tuned_checkpoints",
+                    "--save_fine_tuned_checkpoints_train",
+                    "--save_fine_tuned_checkpoints_dir", ft_dir,
+                    "--export_serving_artifact", artifact], dev)
+        expect = args.eval_samples * (1 + n_test) * args.eval_iters
+        found = sorted(glob.glob(os.path.join(
+            ft_dir, "*", "*", "model.ckpt-{}.npz".format(args.eval_iters))))
+        tasks = {os.path.basename(os.path.dirname(os.path.dirname(p)))
+                 for p in found}
+        fine_tuned = (len(found) == args.eval_samples * (1 + n_test)
+                      and set(names[:n_test]) <= tasks)
+        for path in found:
+            tuned, meta = ckpt.restore_checkpoint(path, state)
+            fine_tuned &= (meta.get("step") == args.eval_iters and any(
+                not torch.equal(tuned.params[k], v)
+                for k, v in state.params.items()))
+        program = torch.export.load(artifact).module()
+        served = {}
+        for b in (1, 5):
+            images = torch.rand(
+                (b, args.image_size, args.image_size, 3),
+                generator=torch.Generator(device=dev).manual_seed(b),
+                device=dev) * 255
+            with torch.no_grad():
+                served[b] = float((program(images) - model(
+                    images, train=False)[1]).abs().max())
+        check("decoders[eval-only]", launches, expect,
+              fine_tuned and max(served.values()) <= 1e-5,
+              "--pretrained, fine-tuned checkpoints and the serving "
+              "artifact | wall {:.2f} s | {} fine-tuned checkpoints for "
+              "tasks {} read back and differ from the meta-learned state "
+              "{} | artifact {:.1f} MB, max |probs - module's| at batch 1 "
+              "{:.3g}, at batch 5 {:.3g} (1e-5) | peak memory {:.2f} "
+              "GB".format(wall, len(found), sorted(tasks), fine_tuned,
+                          os.path.getsize(artifact) / 1e6, served[1],
+                          served[5], peak / 1e9))
+
+        prof_dir = os.path.join(workdir, "profile")
+        pargv = argv + PROFILE_ARGV + [
+            "--checkpoint", os.path.join(workdir, "ckpt_profile"),
+            "--profile_dir", prof_dir]
+        pargs = args_lib.argument_parser().parse_args(pargv)
+        p_test = max(pargs.synthetic_tasks // 4, 1)
+        _, out, launches, wall, peak = _run_cli(pargv, dev)
+        expect, terms = _expected_train_launches(
+            pargs, pargs.synthetic_tasks - p_test, p_test)
+        (trace,) = glob.glob(os.path.join(prof_dir, "*.pt.trace.json.gz"))
+        with gzip.open(trace) as f:
+            raw = f.read()
+        events = json.loads(raw)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel"
+                      and "full_pass_kernel" in e.get("name", ""))
+        ranges = {e["name"] for e in events
+                  if e.get("cat") == "user_annotation"}
+        phases = {"meta_step", "eval_train", "eval_test"}
+        check("decoders[profile]", launches, expect,
+              kernels == launches["full_pass"] and phases <= ranges,
+              "--profile_dir | wall {:.2f} s | trace {:.1f} MB gzipped "
+              "({:.1f} MB of JSON), {} events, {} full_pass kernel events, "
+              "ranges {} | peak memory {:.2f} GB | expected launches {} = "
+              "{}".format(
+                  wall, os.path.getsize(trace) / 1e6, len(raw) / 1e6,
+                  len(events), kernels,
+                  sorted(ranges & phases), peak / 1e9, expect, terms))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log("decoders: the phase's wall {:.2f} s".format(time.time() - t0))
+    if failed:
+        raise AssertionError("the decoders' CLI runs did not run as "
+                             "expected: {}".format(", ".join(failed)))
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1165,6 +1395,7 @@ def main() -> int:
     by_path.update(phase_eval(dev))
     by_path["joint"] = phase_joint(dev)
     by_path.update(phase_train(dev))
+    by_path.update(phase_decoders(dev))
     # Each kernel's `launches` is read from the path it carries: the
     # meta-step for full_pass, the split-route evaluation for cheap_pass,
     # the joint run for fused_light_augment; every path's counts beside.

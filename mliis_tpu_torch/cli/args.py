@@ -171,9 +171,13 @@ def argument_parser():
         help='threefry: the port\'s Philox generators; rbg is not '
              'available.')
     add('--profile_dir', type=str, default=None,
-        help='A profiler trace of the whole run: not ported.')
+        help='Write a torch.profiler Chrome trace (host and CUDA activity, '
+             'the PhaseTimer phases as ranges) of the whole run into this '
+             'directory.')
     add('--export_serving_artifact', type=str, default=None,
-        help='A serving artifact of the final model: not ported.')
+        help='After the evaluation, write the eval-mode forward of the '
+             'final model (its state in the program) to this path as a '
+             'torch.export artifact (.pt2) with a dynamic batch.')
     return parser
 
 
@@ -183,17 +187,6 @@ def check_ported(args) -> None:
     unported = [
         (args.mesh_tasks or args.mesh_data, "--mesh_tasks / --mesh_data",
          "task- and data-sharded meta-training", 6),
-        (args.spatial_pyramid_pooling, "--spatial_pyramid_pooling",
-         "EfficientLab's ASPP", 5),
-        (args.skip_decoding, "--skip_decoding",
-         "EfficientLab's skip decoding", 5),
-        (args.save_fine_tuned_checkpoints
-         or args.save_fine_tuned_checkpoints_train,
-         "--save_fine_tuned_checkpoints[_train]",
-         "the evaluator's fine-tuned-checkpoint export", 4),
-        (args.profile_dir, "--profile_dir", "whole-run profiler traces", 4),
-        (args.export_serving_artifact, "--export_serving_artifact",
-         "the serving-artifact export", 4),
     ]
     for is_set, flag, feature, item in unported:
         if is_set:
@@ -217,6 +210,8 @@ def model_kwargs(args) -> dict:
         n_classes=args.classes,
         feature_extractor_name=args.feature_extractor_name,
         rsd=tuple(args.rsd) if args.rsd else None,
+        spatial_pyramid_pooling=args.spatial_pyramid_pooling,
+        skip_decoding=args.skip_decoding,
         disable_rsd_residual_connections=args.disable_rsd_residual_connections,
         final_layer_dropout_rate=args.final_layer_dropout_rate,
     )

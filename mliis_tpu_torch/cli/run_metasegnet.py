@@ -14,9 +14,15 @@ evaluation with the grep line and meta-test_results.json:
 
 It runs on the card; `main(argv, device="cpu")` runs it on the CPU. Every
 random draw comes from one `torch.Generator` on that device, seeded from
-`--seed` (the weights from a CPU generator with the same seed). Flags of
-features that are not ported raise NotImplementedError naming their
-ROADMAP.md item (`args.check_ported`).
+`--seed` (the weights from a CPU generator with the same seed). As in the
+JAX driver (mliis_tpu/cli/run_metasegnet.py:70-73, 248-294),
+`--profile_dir` traces the whole run, the final evaluations write the
+fine-tuned checkpoints (`--save_fine_tuned_checkpoints_train` on the train
+set, `--save_fine_tuned_checkpoints` on the test set, both under
+`--save_fine_tuned_checkpoints_dir`), and `--export_serving_artifact` is
+written after the results JSON. Flags of features that are not ported
+raise NotImplementedError naming their ROADMAP.md item
+(`args.check_ported`).
 """
 import dataclasses
 import datetime
@@ -45,6 +51,8 @@ from mliis_tpu_torch.meta.uho_eval import (EarlyStoppingEvaluator,
 from mliis_tpu_torch.models.efficientlab import EfficientLab
 from mliis_tpu_torch.ops.meta_math import tree_count_params
 from mliis_tpu_torch.utils import checkpoint as ckpt_lib
+from mliis_tpu_torch.utils import profiling
+from mliis_tpu_torch.utils.export import save_serving_artifact
 
 
 def load_datasets(args):
@@ -77,10 +85,19 @@ def main(argv=None, device=None):
     print("Experiment started at: {}".format(start_time))
     args = args_lib.argument_parser().parse_args(argv)
     args_lib.check_ported(args)
+    dev = resolve_device(device)
+    if args.profile_dir:
+        with profiling.trace(args.profile_dir, dev) as path:
+            state = _main_impl(args, dev, start_time)
+        print("Wrote the profiler trace to {}".format(path))
+        return state
+    return _main_impl(args, dev, start_time)
+
+
+def _main_impl(args, dev, start_time):
     if args.optimize_update_hyperparms_on_val_set and not args.num_val_tasks:
         raise ValueError(
             "Must specify num_val_tasks > 0 to optimize update hyperparams.")
-    dev = resolve_device(device)
     random.seed(args.seed)
     generator = torch.Generator(device=dev).manual_seed(args.seed)
 
@@ -225,7 +242,10 @@ def main(argv=None, device=None):
         mean_train_iou, _ = evaluate_gecko(
             train_evaluator, state, generator, lr=lr,
             num_samples=args.eval_samples, serially_eval_all_tasks=False,
-            num_tasks_to_sample=1, aug_rate=args.aug_rate)
+            num_tasks_to_sample=1, aug_rate=args.aug_rate,
+            save_fine_tuned_checkpoints=args.save_fine_tuned_checkpoints_train,
+            save_fine_tuned_checkpoints_dir=(
+                args.save_fine_tuned_checkpoints_dir))
 
     if args.eval_val_tasks:
         target_store, test_set_string = val_store, "val"
@@ -238,7 +258,9 @@ def main(argv=None, device=None):
     mean_test_iou, task_name_iou_map = evaluate_gecko(
         evaluator, state, generator, lr=lr, num_samples=args.eval_samples,
         serially_eval_all_tasks=args.serially_eval_all_test_tasks,
-        num_tasks_to_sample=1, aug_rate=args.aug_rate)
+        num_tasks_to_sample=1, aug_rate=args.aug_rate,
+        save_fine_tuned_checkpoints=args.save_fine_tuned_checkpoints,
+        save_fine_tuned_checkpoints_dir=args.save_fine_tuned_checkpoints_dir)
 
     print("Evaluated meta-{} tasks:".format(test_set_string))
     print(task_name_iou_map)
@@ -252,6 +274,12 @@ def main(argv=None, device=None):
     with open(results_path, "w") as f:
         json.dump(task_name_iou_map, f)
     print("Wrote results to {}".format(results_path))
+
+    if args.export_serving_artifact:
+        save_serving_artifact(args.export_serving_artifact, model, state,
+                              args.image_size)
+        print("Exported serving artifact to {}".format(
+            args.export_serving_artifact))
 
     end_time = datetime.datetime.now()
     print("Experiment finished at: {}, taking {}".format(

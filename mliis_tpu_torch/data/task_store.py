@@ -4,8 +4,9 @@ A copy of the JAX package's `TaskStore`, its loader and the CLIs'
 dataset checks: the FSS-1000 train/val/test split, the train/test leakage
 checks (task names, and sha-256 of the images on request) and the FP-k
 synonym unions. The arrays are numpy; `to_torch` puts them on the device.
-Shards are read through the Python tfrecord codec (`data/tfrecord.py`) or
-from npz; the JAX package's native C++ loader is not ported (ROADMAP.md).
+tfrecord shards are read by the native C++ reader (`data/native_loader`)
+where its library loads, else by the Python codec (`data/tfrecord.py`);
+npz shards by numpy.
 """
 import dataclasses
 import glob
@@ -16,7 +17,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mliis_tpu_torch.data import manifests, tfrecord
+from mliis_tpu_torch.data import manifests, native_loader
 from mliis_tpu_torch.device import resolve_device
 
 SHARD_SUFFIXES = (".tfrecord.gzip", ".tfrecord", ".npz")
@@ -115,21 +116,38 @@ def find_task_shards(data_dir: str) -> List[str]:
 
 
 def load_task_store(data_dir: str, image_size: int = 224,
-                    max_examples: Optional[int] = None) -> TaskStore:
+                    max_examples: Optional[int] = None,
+                    num_threads: int = 8) -> TaskStore:
     """Every per-task shard in `data_dir` as one TaskStore, tasks sorted by
-    name; shards without records are skipped."""
+    name; shards without records are skipped. The tfrecord shards are
+    counted and read `num_threads` at a time (mliis_tpu/data/
+    task_store.py:110-140); the line printed names the reader."""
     shard_paths = find_task_shards(data_dir)
     if not shard_paths:
         raise FileNotFoundError(
             "No task shards (*.tfrecord*, *.npz) in {}".format(data_dir))
+    tf_paths = [p for p in shard_paths if not p.endswith(".npz")]
     tasks, names = [], []
+    if tf_paths:
+        probe_max = max_examples
+        if probe_max is None:
+            # ctypes and gzip release the GIL: the count runs in parallel.
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(num_threads) as pool:
+                probe_max = max(pool.map(native_loader.count_examples,
+                                         tf_paths))
+        images, masks, counts = native_loader.read_shards(
+            tf_paths, image_size, probe_max, num_threads=num_threads)
+        print("load_task_store: read {} tfrecord shard(s) with the {} "
+              "reader".format(len(tf_paths), native_loader.reader_name()))
+        for i, path in enumerate(tf_paths):
+            tasks.append((images[i, :counts[i]], masks[i, :counts[i]]))
+            names.append(task_name_from_path(path))
     for path in shard_paths:
         if path.endswith(".npz"):
             with np.load(path, allow_pickle=False) as z:
                 tasks.append((z["images"], z["masks"]))
-        else:
-            tasks.append(tfrecord.read_segmentation_shard(path, image_size))
-        names.append(task_name_from_path(path))
+            names.append(task_name_from_path(path))
 
     empty = [n for n, t in zip(names, tasks) if t[0].shape[0] == 0]
     if empty:

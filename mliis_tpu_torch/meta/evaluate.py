@@ -23,8 +23,20 @@ with `use_batch_stats_at_predict` (the reference's legacy no-is_training
 mode), batch statistics over the query batch (transductive) or over the
 support batch plus one query at a time; the running statistics that
 forward updates are discarded, as the JAX package discards them.
+
+The exports (`evaluate(save_fine_tuned_checkpoints=...)` and the
+SAVE_PREDICTIONS overlays) are written from the adapted state, query
+images and probabilities of the very episode the evaluation scored: each
+task's fine-tuned checkpoint at `<dir>/<task>/<eval_sample>/` and its
+overlays are the episode behind the reported IoU. The JAX package gets
+the same artifacts by running each task's adaptation a second time with
+the same key (mliis_tpu/meta/evaluate.py:291-297); the port's episodes
+draw from a `torch.Generator`, which a second run would have to replay,
+so it keeps the first run's results and spends no device time on a
+second.
 """
 import dataclasses
+import os
 import random as pyrandom
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -38,6 +50,8 @@ from mliis_tpu_torch.meta.inner_loop import (LossConfig, ModelState,
                                              OptimizerConfig, make_adapt_fn,
                                              make_lr_array)
 from mliis_tpu_torch.ops.metrics import batched_hard_iou, ci95, nanmean
+from mliis_tpu_torch.utils import checkpoint as ckpt_lib
+from mliis_tpu_torch.utils import viz
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,8 +177,8 @@ class GeckoEvaluator:
         self.store = store
         self._model = model.to(self.device)
         self._images, self._masks, self._counts = store.to_torch(self.device)
-        self._eval_task = make_eval_task_fn(model, loss_config, opt_config,
-                                            config)
+        self._adapt_and_predict = make_adapt_and_predict_fn(
+            model, loss_config, opt_config, config)
 
     def _default_drop_rate(self) -> float:
         """None drop_rate means the model's own final dropout rate."""
@@ -174,9 +188,12 @@ class GeckoEvaluator:
     def evaluate_tasks(self, state: ModelState, task_indices: List[int],
                        generator: torch.Generator, lr: float,
                        drop_rate: Optional[float] = None,
-                       aug_rate: Optional[float] = 0.5) -> np.ndarray:
+                       aug_rate: Optional[float] = 0.5,
+                       on_episode=None) -> np.ndarray:
         """Per-task mean IoU for the given task indices, one task after
-        another; `generator` lies on the evaluator's device."""
+        another; `generator` lies on the evaluator's device. `on_episode(
+        task_index, adapted, query_images, probs)`, where given, sees each
+        episode as it was scored."""
         drop_rate = self._default_drop_rate() if drop_rate is None \
             else drop_rate
         n_max = self._images.shape[1]
@@ -184,8 +201,13 @@ class GeckoEvaluator:
         for j, i in enumerate(task_indices):
             draws = draw_episode(generator, self._counts[i], self.config,
                                  n_max)
-            ious = self._eval_task(state, self._images[i], self._masks[i],
-                                   draws, generator, lr, drop_rate, aug_rate)
+            adapted, query_images, query_masks, probs = \
+                self._adapt_and_predict(state, self._images[i],
+                                        self._masks[i], draws, generator, lr,
+                                        drop_rate, aug_rate)
+            if on_episode is not None:
+                on_episode(i, adapted, query_images, probs)
+            ious = batched_hard_iou((probs > 0.5).float(), query_masks)
             results[j] = np.nanmean(ious.cpu().numpy())
         return results
 
@@ -194,17 +216,42 @@ class GeckoEvaluator:
                  num_tasks_to_sample: int = 1,
                  drop_rate: Optional[float] = None,
                  aug_rate: Optional[float] = 0.5,
-                 rng: Optional[pyrandom.Random] = None
+                 rng: Optional[pyrandom.Random] = None,
+                 save_fine_tuned_checkpoints: bool = False,
+                 save_fine_tuned_checkpoints_dir: Optional[str] = None,
+                 eval_sample_num: Optional[int] = None
                  ) -> Tuple[float, Dict[str, float]]:
         """One evaluation sample over the store: every task, or a random
         subsample of `num_tasks_to_sample` (shuffled by `rng`). Returns the
-        mean IoU and {task name: IoU}."""
+        mean IoU and {task name: IoU}. Optionally writes each task's
+        fine-tuned state (the reference's reptile.py:281-285) and, when
+        the SAVE_PREDICTIONS toggle is set, its overlays
+        (reptile.py:495-513), both from the scored episode."""
         indices = list(range(self.store.num_tasks))
         if not eval_all_tasks:
             (rng or pyrandom).shuffle(indices)
             indices = indices[:num_tasks_to_sample]
-        ious = self.evaluate_tasks(state, indices, generator, lr, drop_rate,
-                                   aug_rate)
+        overlays = viz.save_predictions_enabled()
+        if overlays:
+            viz.pyplot()  # no matplotlib: fail before the first episode
+        save_dir = (save_fine_tuned_checkpoints_dir
+                    if save_fine_tuned_checkpoints else None)
+
+        def export(i, adapted, query_images, probs):
+            name = self.store.names[i]
+            if save_dir is not None:
+                ckpt_lib.save_fine_tuned_checkpoint(
+                    os.path.join(save_dir, name), adapted,
+                    step=self.config.inner_iters,
+                    eval_sample_num=eval_sample_num)
+            if overlays:
+                viz.save_query_predictions(
+                    query_images.cpu().numpy(),
+                    (probs > 0.5).float().cpu().numpy(), task_name=name)
+
+        ious = self.evaluate_tasks(
+            state, indices, generator, lr, drop_rate, aug_rate,
+            on_episode=export if save_dir is not None or overlays else None)
         task_iou_map = {self.store.names[i]: float(iou)
                         for i, iou in zip(indices, ious)}
         return nanmean(ious), task_iou_map
@@ -217,16 +264,22 @@ def evaluate_gecko(evaluator: GeckoEvaluator, state: ModelState,
                    num_tasks_to_sample: int = 1,
                    drop_rate: Optional[float] = None,
                    aug_rate: Optional[float] = 0.5,
+                   save_fine_tuned_checkpoints: bool = False,
+                   save_fine_tuned_checkpoints_dir: Optional[str] = None,
                    log_fn=print) -> Tuple[float, Dict[str, List[float]]]:
     """Repeated-sample evaluation (the reference's eval.py:18-90): per-task
-    IoU lists over `num_samples` runs, logged as mean +/- 95% CI."""
+    IoU lists over `num_samples` runs, logged as mean +/- 95% CI. Sample i
+    writes its fine-tuned checkpoints under `<dir>/<task>/i/`."""
     mean_ious = []
     task_iou_map: Dict[str, List[float]] = {}
-    for _ in range(num_samples):
+    for i in range(num_samples):
         mean_iou, sample_map = evaluator.evaluate(
             state, generator, lr, eval_all_tasks=serially_eval_all_tasks,
             num_tasks_to_sample=num_tasks_to_sample, drop_rate=drop_rate,
-            aug_rate=aug_rate)
+            aug_rate=aug_rate,
+            save_fine_tuned_checkpoints=save_fine_tuned_checkpoints,
+            save_fine_tuned_checkpoints_dir=save_fine_tuned_checkpoints_dir,
+            eval_sample_num=i)
         for name, val in sample_map.items():
             task_iou_map.setdefault(name, []).append(val)
         mean_ious.append(mean_iou)

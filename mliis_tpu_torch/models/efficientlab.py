@@ -1,11 +1,21 @@
 """EfficientLab segmentation network: EfficientNet-b0/b3 encoder truncated
-at reduction_4, residual skip decoders (RSD), final dropout and a 1x1
+at reduction_4, optional Auto-DeepLab-style ASPP and DeepLab-v3+ skip
+decoding, residual skip decoders (RSD), final dropout and a 1x1
 projection, upsampled back to the input with align_corners bilinear.
 
-The port of the JAX package's `models/efficientlab.py` (the `rsd` path).
-ASPP and `skip_decoding` are not ported yet (ROADMAP.md). The public call
+The port of the JAX package's `models/efficientlab.py`. The public call
 keeps the JAX layouts: NHWC float images in [0, 255] in, NHWC float32
 logits and probabilities out; inside, activations are NCHW.
+
+The skip decoder's batch norms (`decode_skip_batch_normalization` and
+those of `sep_conv_{0,1}`) normalize by the batch's moments in every mode,
+as the reference's literal training=True does, and update their running
+stats only in a training forward (`FusedBatchNorm(always_batch_stats=
+True)`). The JAX package's layers write their running stats at train=False
+as well, so its eval-mode apply of a skip-decoding model raises unless the
+caller makes `batch_stats` mutable; the port computes what that mutable
+apply computes and keeps the buffers (ROADMAP.md section C). ASPP's
+dropout rate is a fixed 0.5 in training, apart from the final layer's.
 
 bf16 follows flax's `dtype=`: activations and kernels are cast to the
 compute dtype at each conv and batch norm, params stay float32, and the
@@ -37,6 +47,11 @@ def _cat(tensors):
     """Channel concat with jnp-style dtype promotion."""
     dtype = functools.reduce(torch.promote_types, [t.dtype for t in tensors])
     return torch.cat([t.to(dtype) for t in tensors], dim=1)
+
+
+def _dropout(x, rate, train, generator):
+    return layers.traced_dropout(generator, x, rate) if train and rate > 0 \
+        else x
 
 
 class _ConvNlBn(nn.Module):
@@ -93,6 +108,58 @@ class ResidualSkipDecoder(nn.Module):
         return out
 
 
+class _SepConv(nn.Module):
+    """Depthwise-separable conv with batch-statistics batch norms, the
+    DeepLab skip decoder's unit. Its convs have no compute dtype: on bf16
+    input they run in the promoted float32, as flax's do."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int):
+        super().__init__()
+        self.depthwise_conv = layers.Conv2d(
+            in_features, in_features, kernel_size, groups=in_features,
+            use_bias=False, depthwise_init=True)
+        self.batch_normalization = layers.FusedBatchNorm(
+            in_features, always_batch_stats=True)
+        self.pointwise_conv = layers.Conv2d(in_features, features, 1,
+                                            use_bias=False)
+        self.batch_normalization_1 = layers.FusedBatchNorm(
+            features, always_batch_stats=True)
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        x = layers.swish(self.batch_normalization(self.depthwise_conv(x),
+                                                  train))
+        return layers.swish(self.batch_normalization_1(
+            self.pointwise_conv(x), train))
+
+
+class Aspp(nn.Module):
+    """Auto-DeepLab-style ASPP with dropout in place of batch norm: a 1x1
+    branch, a 3x3 branch at dilation 6 and an image-pooling branch,
+    concatenated as [pooled, 3x3, 1x1] and fused by a 1x1 conv. Its convs
+    have no compute dtype (float32 on bf16 input, as in flax)."""
+
+    def __init__(self, in_features: int, features: int,
+                 dropout_rate: float = 0.5):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.branch_0 = layers.Conv2d(in_features, features, 1)
+        self.branch_1 = layers.Conv2d(in_features, features, 3, dilation=6)
+        self.branch_2 = layers.Conv2d(in_features, features, 1)
+        self.fuse = layers.Conv2d(3 * features, features, 1)
+
+    def forward(self, x: torch.Tensor, train: bool,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        rate = self.dropout_rate
+        b0 = _dropout(layers.swish(self.branch_0(x)), rate, train, generator)
+        b1 = _dropout(layers.swish(self.branch_1(x)), rate, train, generator)
+        # The pooled branch drops before its swish, the others after.
+        b2 = layers.swish(_dropout(self.branch_2(x.mean((2, 3), keepdim=True)),
+                                   rate, train, generator))
+        b2 = b2.expand(-1, -1, x.shape[2], x.shape[3])
+        out = self.fuse(_cat([b2, b1, b0]))
+        return _dropout(layers.swish(out), rate, train, generator)
+
+
 class EfficientLab(nn.Module):
     """The segmentation network; forward returns (logits, probabilities)
     at input resolution, both NHWC float32."""
@@ -101,6 +168,8 @@ class EfficientLab(nn.Module):
                  separate_background_channel: bool = True,
                  feature_extractor_name: str = "efficientnet-b0",
                  rsd: Optional[Sequence[int]] = (2,),
+                 spatial_pyramid_pooling: bool = False,
+                 skip_decoding: bool = False,
                  disable_rsd_residual_connections: bool = False,
                  final_layer_dropout_rate: Optional[float] = 0.2,
                  compute_dtype: Optional[torch.dtype] = None):
@@ -117,6 +186,20 @@ class EfficientLab(nn.Module):
         self.add_module(self.backbone_name, features)
         channels = features.endpoint_channels()
         decoded = channels["reduction_4"]
+        if spatial_pyramid_pooling:
+            self.spatial_pyramid_pooling = Aspp(decoded, aspp_dim)
+            decoded = aspp_dim
+        if skip_decoding:
+            skip_dim = aspp_dim // 2
+            self.decode_skip_proj = layers.Conv2d(
+                channels["reduction_2"], skip_dim, 1, use_bias=False)
+            self.decode_skip_batch_normalization = layers.FusedBatchNorm(
+                skip_dim, always_batch_stats=True)
+            self.sep_conv_0 = _SepConv(decoded + skip_dim,
+                                       aspp_dim + skip_dim, 3)
+            self.sep_conv_1 = _SepConv(aspp_dim + skip_dim,
+                                       aspp_dim + skip_dim, 3)
+            decoded = aspp_dim + skip_dim
         for i in self.rsd:
             self.add_module(
                 "decode_skip_connections_{}".format(i - 1),
@@ -153,6 +236,15 @@ class EfficientLab(nn.Module):
             x = x.to(self.compute_dtype)
         _, endpoints = getattr(self, self.backbone_name)(x, train, generator)
         decoded = endpoints["reduction_4"]
+        if hasattr(self, "spatial_pyramid_pooling"):
+            decoded = self.spatial_pyramid_pooling(decoded, train, generator)
+        if hasattr(self, "sep_conv_0"):
+            decoded = resize_bilinear_align_corners_nchw(decoded, in_h // 4,
+                                                         in_w // 4)
+            skip = self.decode_skip_batch_normalization(
+                self.decode_skip_proj(endpoints["reduction_2"]), train)
+            decoded = _cat([decoded, layers.swish(skip)])
+            decoded = self.sep_conv_1(self.sep_conv_0(decoded, train), train)
         for i in self.rsd:
             decoded = getattr(self, "decode_skip_connections_{}".format(
                 i - 1))(decoded, endpoints["reduction_{}".format(i)], train)
@@ -160,8 +252,8 @@ class EfficientLab(nn.Module):
         rate = final_layer_dropout_rate
         if rate is None:
             rate = self.final_layer_dropout_rate
-        if rate is not None and rate > 0 and train:
-            decoded = layers.traced_dropout(generator, decoded, rate)
+        if rate is not None:
+            decoded = _dropout(decoded, rate, train, generator)
 
         decoded = self.final_layer_weights(decoded).float()
         if not upsample:

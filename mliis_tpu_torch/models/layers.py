@@ -11,7 +11,10 @@ What differs from the obvious `nn.Conv2d` / `nn.BatchNorm2d`:
   - `FusedBatchNorm` takes the biased variance E[x^2]-E[x]^2 in float32,
     updates the running stats with flax momentum 0.99 (new = 0.99*old +
     0.01*batch, the biased variance included), uses eps 1e-3, and
-    normalizes with one folded multiply-add in the compute dtype.
+    normalizes with one folded multiply-add in the compute dtype. With
+    `always_batch_stats` it normalizes by the batch's moments in both
+    modes and updates the running stats only in training (the skip
+    decoder's layers, whose reference passes a literal training=True).
 Parameter names keep the flax names (`kernel`, `bias`, `scale`; running
 stats `mean`, `var`) so checkpoints map one to one and the l2 term can skip
 batch norm by name.
@@ -88,14 +91,20 @@ class Conv2d(nn.Module):
 
 
 class FusedBatchNorm(nn.Module):
-    """Scale-bias-folded batch norm (the JAX package's `FusedBatchNorm`)."""
+    """Scale-bias-folded batch norm (the JAX package's `FusedBatchNorm`).
+
+    `always_batch_stats=True` normalizes by the batch's moments whatever
+    `train` says; `train` then only decides whether the running stats are
+    updated, so an eval-mode forward leaves the buffers as they were."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-3,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 always_batch_stats: bool = False):
         super().__init__()
         self.momentum, self.epsilon = momentum, epsilon
         self.compute_dtype = compute_dtype
+        self.always_batch_stats = always_batch_stats
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -109,14 +118,15 @@ class FusedBatchNorm(nn.Module):
             self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        if train:
+        if train or self.always_batch_stats:
             xf = x.float()
             mean = xf.mean((0, 2, 3))
             var = xf.square().mean((0, 2, 3)) - mean.square()
-            m = self.momentum
-            with torch.no_grad():
-                self.mean.mul_(m).add_((1.0 - m) * mean.detach())
-                self.var.mul_(m).add_((1.0 - m) * var.detach())
+            if train:
+                m = self.momentum
+                with torch.no_grad():
+                    self.mean.mul_(m).add_((1.0 - m) * mean.detach())
+                    self.var.mul_(m).add_((1.0 - m) * var.detach())
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.epsilon) * self.scale

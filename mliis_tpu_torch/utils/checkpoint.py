@@ -10,11 +10,15 @@ rename plus the layout of conv kernels:
   - conv [kh, kw, in, out] <-> [out, in, kh, kw];
   - depthwise [kh, kw, 1, C] <-> [C, 1, kh, kw] (the same transpose);
   - batch-norm `scale`/`bias` are params, `mean`/`var` buffers.
+The evaluator's per-task fine-tuned exports are ordinary checkpoints at
+`<dir>/<task>/<eval_sample>/model.ckpt-<inner_iters>.npz`
+(`save_fine_tuned_checkpoint`), and `import_tf1_var_map` takes weights
+converted from the published TF1 checkpoint (`models/tf1_import`).
 """
 import json
 import os
 import re
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -179,3 +183,33 @@ def restore_checkpoint(path_or_dir: str, template: ModelState,
         with open(path + ".json") as f:
             meta = json.load(f)
     return state, meta
+
+
+def save_fine_tuned_checkpoint(save_dir: str, state: ModelState,
+                               step: Optional[int] = None,
+                               eval_sample_num: Optional[int] = None) -> str:
+    """A task's fine-tuned state under `save_dir/<eval_sample_num>`, one
+    checkpoint kept (the reference's util.py:72-81)."""
+    if eval_sample_num is not None:
+        save_dir = os.path.join(save_dir, str(eval_sample_num))
+    return save_checkpoint(save_dir, state, step or 0, max_to_keep=1)
+
+
+def import_tf1_var_map(tf_vars: Dict[str, np.ndarray], template: ModelState,
+                       name_mapper: Callable[[str], Optional[str]]
+                       ) -> ModelState:
+    """A {name: array} dict (TF1 variables converted offline, e.g. by
+    `models/tf1_import.convert_tf1_vars`, whose arrays are in flax layout)
+    into the shape of `template`. `name_mapper` gives each name's
+    "params/..." or "batch_stats/..." path, or None to skip it; arrays
+    take the port's layout as a checkpoint's do. Unmapped entries keep the
+    template's values."""
+    flat = {}
+    for tf_name, value in tf_vars.items():
+        path = name_mapper(tf_name)
+        if path is not None:
+            flat[path] = value
+    return ModelState(_fill(template.params, flat, "params/", False),
+                      _fill(template.batch_stats, flat, "batch_stats/",
+                            False),
+                      template.opt)

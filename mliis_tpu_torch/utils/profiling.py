@@ -1,22 +1,54 @@
-"""Phase timing for the training and evaluation loops.
+"""Whole-run traces and phase timing for the training and evaluation loops.
 
 The port of the JAX package's `utils/profiling.py`:
+  - `trace(log_dir)`: a `torch.profiler` trace of a block, host activity
+    and, on a CUDA device, the card's kernels, written into `log_dir` as a
+    gzip-compressed Chrome trace (`<time>.pt.trace.json.gz`, which
+    chrome://tracing and Perfetto read; a few dozen inner steps of the
+    float32 model make about 150 MB of JSON, a tenth of that compressed)
+    where the JAX package writes a TensorBoard profile;
   - `annotate(name)`: a `torch.profiler.record_function` range, so a phase
     shows up on a profiler timeline;
   - `PhaseTimer`: wall-clock seconds accumulated per named phase, with a
     JSONL export. On a CUDA device a phase ends with a
     `torch.cuda.synchronize`, so it holds the device's time and not the
     time to enqueue the work (the JAX package's `train_gecko` blocks on
-    the state for the same reason).
-Whole-run traces (`--profile_dir`) are not ported (ROADMAP.md).
+    the state for the same reason). Inside `trace`, each phase is a range
+    on the trace's timeline.
 """
 import contextlib
 import json
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, device=None) -> Iterator[str]:
+    """Profile the block and write its gzip-compressed Chrome trace into
+    `log_dir`; yields the trace file's path. CUDA activity is recorded
+    when `device` is a CUDA device (default: the card, when torch has
+    one)."""
+    os.makedirs(log_dir, exist_ok=True)
+    cuda = (torch.device(device).type == "cuda" if device is not None
+            else torch.cuda.is_available())
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    path = os.path.join(log_dir, time.strftime("%Y%m%d_%H%M%S")
+                        + ".pt.trace.json.gz")
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    try:
+        yield path
+    finally:
+        if cuda:
+            torch.cuda.synchronize()
+        profiler.stop()
+        profiler.export_chrome_trace(path)
 
 
 def annotate(name: str):

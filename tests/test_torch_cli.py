@@ -2,13 +2,13 @@
 JAX package's: the same parser (every flag's default, type, nargs and
 choices; run.sh's flags and no flags parse to the same namespace), the
 same configs from every config function, field by field over the fields
-both dataclasses have, the same parameter count for the same flags, and a
+both dataclasses have, the same parameter count for the same flags, a
 loud NotImplementedError, naming its ROADMAP.md item, for every flag whose
-feature the port lacks.
+feature the port lacks, and no error for the flags it has ported.
 
 Fields one side has and the other does not, and why:
-  - model_kwargs: `spatial_pyramid_pooling` and `skip_decoding` are
-    JAX-only; their flags raise in the port (item 5).
+  - model_kwargs: none; `spatial_pyramid_pooling` and `skip_decoding` are
+    on both sides.
   - TrainLoopConfig: `task_group_size`, `chain_tasks` and
     `chain_eval_chunk` are JAX-only execution strategies; the port always
     runs the meta-batch one task after another, which the JAX package's
@@ -60,7 +60,7 @@ FLAG_SETS = {
 }
 
 JAX_ONLY = {
-    "model_kwargs": {"spatial_pyramid_pooling", "skip_decoding"},
+    "model_kwargs": set(),
     "train_loop_config": {"task_group_size", "chain_tasks",
                           "chain_eval_chunk"},
     "eval_config": {"task_chunk_size", "chain_chunk"},
@@ -140,17 +140,31 @@ def test_parameter_count_matches_jax():
     assert tree_count_params(params) == jcount(variables["params"])
 
 
+def test_parameter_count_with_decoders_matches_jax():
+    """run.sh's flags with `--spatial_pyramid_pooling --skip_decoding`:
+    the parameter count is the JAX package's."""
+    flags = RUN_SH_FLAGS + " --spatial_pyramid_pooling --skip_decoding"
+    jmodel = JEfficientLab(**jargs.model_kwargs(_parse(jargs, flags)))
+    key = jax.random.PRNGKey(0)
+    variables = jax.eval_shape(lambda: jmodel.init(
+        {"params": key, "dropout": key}, jnp.zeros((1, 64, 64, 3)),
+        train=True))
+    model = EfficientLab(**targs.model_kwargs(_parse(targs, flags)))
+    params = {k: p for k, p in model.named_parameters()}
+    assert tree_count_params(params) == jcount(variables["params"])
+
+
 UNPORTED = [
     ("--mesh_tasks 2", "item 6"),
     ("--mesh_data 2", "item 6"),
-    ("--spatial_pyramid_pooling", "item 5"),
-    ("--skip_decoding", "item 5"),
-    ("--save_fine_tuned_checkpoints", "item 4"),
-    ("--save_fine_tuned_checkpoints_train", "item 4"),
-    ("--profile_dir prof", "item 4"),
-    ("--export_serving_artifact art", "item 4"),
     ("--rng_impl rbg", "Philox"),
 ]
+
+PORTED = ["--spatial_pyramid_pooling", "--skip_decoding",
+          "--spatial_pyramid_pooling --skip_decoding",
+          "--save_fine_tuned_checkpoints",
+          "--save_fine_tuned_checkpoints_train", "--profile_dir prof",
+          "--export_serving_artifact art"]
 
 
 @pytest.mark.parametrize("flags,names", UNPORTED,
@@ -166,3 +180,13 @@ def test_unported_flags_raise(flags, names):
 
 def test_ported_flags_pass_the_check():
     targs.check_ported(_parse(targs, RUN_SH_FLAGS))
+
+
+@pytest.mark.parametrize("flags", PORTED, ids=PORTED)
+def test_ported_flags_run(flags):
+    """The decoders' and the exports' flags pass check_ported (they run
+    through `main` in tests/test_torch_exports.py), and the model flags
+    give the JAX package's model_kwargs."""
+    args = _parse(targs, flags)
+    targs.check_ported(args)
+    assert targs.model_kwargs(args) == jargs.model_kwargs(_parse(jargs, flags))

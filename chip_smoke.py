@@ -76,13 +76,14 @@ its phases, one line each (or a few):
      dropout 0.5, 224^2, FOMAML* with 10 shots and a tail of 5, 59 inner
      steps at batch 8, bce_dice + l2, SGD lr 5e-4, aug rate 0.5,
      transductive, meta step 0.1 annealed to 1e-5) on 8 synthetic tasks
-     (6 train, 2 test), 2 meta-iters, an interval evaluation at step 0
-     and 1 eval sample: exactly 2 x 5 x 58 + 1 x (6 + 2) x 59 +
-     1 x (1 + 2) x 59 = 1,229 `full_pass` launches (derived from the flags
-     and printed) and no other kernel, finite and changed params, the grep
-     line, meta-test_results.json, an ETA line a meta-step, and the newest
-     checkpoint read back equal; then `--pretrained` eval-only from it
-     (3 x 59 = 177 launches, the restored params equal the saved), the
+     (6 train, 2 test), 2 meta-iters, an interval evaluation at step 0,
+     1 eval sample and 10 evaluation steps a task (run.sh: 59): exactly
+     2 x 5 x 58 + 1 x (6 + 2) x 10 + 1 x (1 + 2) x 10 = 690 `full_pass`
+     launches (derived from the flags and printed) and no other kernel,
+     finite and changed params, the grep line, meta-test_results.json, an
+     ETA line a meta-step, and the newest checkpoint read back equal; then
+     `--pretrained` eval-only from it (3 x 10 = 30 launches, the restored
+     params equal the saved), the
      UHO branch (2 configs of 5 trace steps on 2 val tasks, then the
      evaluation at the estimated steps; its CSV) and the k-shot branch
      (k 1 and 5 at 5 steps on the 2 test tasks; k-shot-results.csv), each
@@ -92,12 +93,12 @@ its phases, one line each (or a few):
      shards and read back by `load_task_store` (prints whether
      native/libtfrecord_loader.so loaded and which reader ran); then the
      `train` run with `--spatial_pyramid_pooling --skip_decoding` cut to 1
-     meta-iter: exactly 1 x 5 x 58 + 1 x (6 + 2) x 59 + 1 x (1 + 2) x 59
-     = 939 `full_pass` launches and no other kernel, finite and changed
+     meta-iter: exactly 1 x 5 x 58 + 1 x (6 + 2) x 10 + 1 x (1 + 2) x 10
+     = 400 `full_pass` launches and no other kernel, finite and changed
      params, the newest checkpoint holding the ASPP and skip-decoder keys
      and reading back equal, and the skip decoder's running stats
      unchanged by an eval-mode forward; then `--pretrained` eval-only
-     (177 launches) writing the fine-tuned checkpoints of the train and
+     (30 launches) writing the fine-tuned checkpoints of the train and
      the test evaluation (one a (task, sample), each read back and
      different from the meta-learned state) and the serving artifact
      (loaded with `torch.export.load`, the module's eval probabilities
@@ -107,6 +108,25 @@ its phases, one line each (or a few):
      `full_pass` kernel event a launch and the `meta_step`, `eval_train`
      and `eval_test` ranges. Prints each run's wall seconds, seconds a
      meta-step, peak memory and the trace's size.
+  11. mesh: the sharded strategies (mliis_tpu_torch/parallel/mesh.py) at
+     the `train` phase's width. A world of 1 on NCCL: the meta-training
+     CLI with `--mesh_tasks 1` (the `train` run cut to 1 meta-iter and 10
+     evaluation steps a task: 1 x 5 x 58 + 1 x (6 + 2) x 10 + 1 x (1 + 2)
+     x 10 = 400 `full_pass` launches), then one library FOMAML* meta-step
+     unsharded and one through `make_sharded_train_step` on a task mesh
+     of 1 from the same state and draw seed (dropout and drop-connect 0),
+     then 2 unsharded joint steps at 1001 channels and batch 64 (the store
+     cut to 1 image a class). A world of 2 on the one card over gloo
+     (`python -m torch.distributed.run --standalone --nproc_per_node 2
+     chip_smoke.py --mesh-rank DIR`): the CLI with `--mesh_tasks 2`, a
+     1x2 (task, data) meta-step with the sync-BN model and 2 data-parallel
+     joint steps at 32 a rank. Every sharded state is held against its
+     unsharded one (largest gap within MESH_*_BAR of the largest change),
+     the CLIs' mean IoUs within MESH_IOU_BAR, the backends must be NCCL
+     and gloo, and the launches are exact, summed over the ranks: 400 for
+     either CLI, 290 a rank on the 1x2 step, 1 `fused_light_augment` a
+     rank a step. Prints each run's seconds (a meta-step, a joint step),
+     each rank's peak memory and the gaps.
 Then the `kernels` JSON line (each kernel's launches on the path it
 carries, and on every path; `ms`, `cold_ms` and `bound_share` at the main
 path's size, every size's beside them), the card's name and power limit
@@ -736,6 +756,7 @@ def phase_slice(dev):
     from mliis_tpu_torch.data.synthetic import make_synthetic_store
     from mliis_tpu_torch.meta import inner_loop as il
     from mliis_tpu_torch.meta import learners as lr
+    from mliis_tpu_torch.meta.episodes import draw_seed
     from mliis_tpu_torch.models.efficientlab import EfficientLab
     model = EfficientLab(rsd=(2, 4), final_layer_dropout_rate=0.5,
                          compute_dtype=torch.bfloat16)
@@ -759,8 +780,8 @@ def phase_slice(dev):
     seconds = []
     for _ in range(2):
         t0 = time.time()
-        draws = lr.draw_meta_step(gen, counts, cfg, n_max=10)
-        state = step(state, imgs, msks, draws, gen, 0.1, 5e-4)
+        draws = lr.draw_meta_step(draw_seed(gen), counts, cfg, n_max=10)
+        state = step(state, imgs, msks, draws, 0.1, 5e-4)
         torch.cuda.synchronize()
         seconds.append(time.time() - t0)
     launches = read_launches()
@@ -955,14 +976,15 @@ def phase_joint(dev):
 
 
 # run.sh's flags (run.sh:9-21) without --fss_1000, --pretrained and
-# --data-dir, cut to 8 synthetic tasks, 2 meta-iters and 1 eval sample.
+# --data-dir, cut to 8 synthetic tasks, 2 meta-iters, 1 eval sample and 10
+# evaluation steps a task (run.sh: 59; the `eval` phase runs 59).
 TRAIN_ARGV = (
     "--image_size 224 --rsd 2 4 --l2 --foml --foml-tail 5 "
     "--final_layer_dropout_rate 0.5 --augment --aug_rate 0.5 --sgd "
     "--loss_name bce_dice --inner-batch 8 --learning-rate 0.0005 "
     "--train-shots 10 --inner-iters 59 --learning_rate_scheduler fixed "
     "--meta-batch 5 --serially_eval_all_test_tasks --shots 5 --eval-batch 8 "
-    "--eval-iters 59 --transductive --model_name efficientlab "
+    "--eval-iters 10 --transductive --model_name efficientlab "
     "--meta-step 0.1 --meta-step-final 0.00001 --chain_tasks "
     "--chain_eval_chunk --task_chunk_size 8 --synthetic --synthetic_tasks 8 "
     "--meta-iters 2 --eval-interval 2 --eval-samples 1 --seed 0").split()
@@ -1362,6 +1384,418 @@ def phase_decoders(dev):
     return counts
 
 
+# The `mesh` phase: the sharded strategies on the one card. The `train`
+# phase's run cut to 1 meta-iter (the meta-step keeps its full depth of
+# 5 x 59 steps).
+MESH_CUT = ["--meta-iters", "1"]
+MESH_STEP_SEED = 1234      # the library meta-steps' draw seed
+MESH_JOINT_STEPS, MESH_JOINT_BATCH = 2, 64
+MESH_RANKS = 2
+# Bars on the largest difference of a state from the unsharded one, as a
+# share of the largest change the unsharded step made: the order of the
+# sums differs, and cuDNN's backward is not bitwise repeatable. Measured on
+# an H100 80GB HBM3 at 700 W: 6.0e-7 (task axis), 3.5e-7 (1x2), 2.7e-6
+# (joint); the bars leave a factor of 16 to 37. The CLIs' mean IoUs were
+# equal.
+MESH_TASK_BAR, MESH_DATA_BAR, MESH_JOINT_BAR = 1e-5, 1e-5, 1e-4
+MESH_IOU_BAR = 1e-3
+
+
+def _mesh_meta_setup(dev, bn_axis_name=None):
+    """The `train` phase's width for a library meta-step: EfficientLab-b0
+    rsd=(2, 4) in float32 with dropout and drop-connect at 0 (their streams
+    differ by rank on the data axis), weights from seed 0; its store, the
+    FOMAML* config, the step's draws and the initial state."""
+    import torch
+    from mliis_tpu_torch.data.synthetic import make_synthetic_store
+    from mliis_tpu_torch.meta import inner_loop as il
+    from mliis_tpu_torch.meta import learners as lr
+    from mliis_tpu_torch.models.efficientlab import EfficientLab
+    model = EfficientLab(rsd=(2, 4), final_layer_dropout_rate=0.0,
+                         bn_axis_name=bn_axis_name)
+    getattr(model, model.backbone_name).drop_connect_rate = 0.0
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(dev)
+    imgs, msks, counts = make_synthetic_store(
+        num_tasks=8, examples_per_task=10, image_size=224,
+        seed=0).to_torch(dev)
+    cfg = lr.MetaTrainConfig(num_shots=10, inner_batch_size=8,
+                             inner_iters=59, meta_batch_size=5, foml=True,
+                             tail_shots=5, aug_rate=0.5)
+    state = il.init_model_state(model, il.OptimizerConfig("sgd"))
+    return model, (imgs, msks, counts), cfg, state
+
+
+def _mesh_joint_setup(dev, bn_axis_name=None):
+    """The joint path at its published width: 1000 classes (1001
+    channels), b0 rsd=(2,) float32, 224^2, batch 64, SGD + l2 +
+    augmentation; the store cut to 1 image a class (1000 examples); dropout
+    and drop-connect at 0; weights from seed 0; the steps' batches and
+    seeds from seed 5."""
+    import numpy as np
+    import torch
+    from mliis_tpu_torch.data.synthetic import make_synthetic_store
+    from mliis_tpu_torch.joint import trainer as jt
+    from mliis_tpu_torch.meta import inner_loop as il
+    from mliis_tpu_torch.models.efficientlab import EfficientLab
+    ds = jt.joint_dataset_from_task_store(make_synthetic_store(
+        num_tasks=1000, examples_per_task=1, image_size=224, seed=0))
+    model = EfficientLab(n_classes=ds.num_classes, rsd=(2,),
+                         final_layer_dropout_rate=0.0,
+                         bn_axis_name=bn_axis_name)
+    getattr(model, model.backbone_name).drop_connect_rate = 0.0
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(dev)
+    rng = np.random.default_rng(5)
+    batches = [(torch.as_tensor(rng.integers(0, ds.num_examples,
+                                             MESH_JOINT_BATCH), device=dev),
+                torch.as_tensor(rng.integers(0, 2 ** 31 - 1,
+                                             MESH_JOINT_BATCH)
+                                .astype(np.int32), device=dev))
+               for _ in range(MESH_JOINT_STEPS)]
+    cfg = jt.JointTrainConfig(batch_size=MESH_JOINT_BATCH, augment=True,
+                              l2=True)
+    return model, ds, cfg, batches, il.init_model_state(
+        model, il.OptimizerConfig("sgd"))
+
+
+def _run_joint(model, ds, cfg, batches, state, dev, mesh=None):
+    """The joint steps from `state`; returns (state on the CPU, seconds a
+    step, launches, peak bytes)."""
+    import torch
+    from mliis_tpu_torch.joint import trainer as jt
+    from mliis_tpu_torch.meta import inner_loop as il
+    trainer = jt.JointTrainer(model, ds, ds, cfg, il.OptimizerConfig("sgd"),
+                              device=dev, log_fn=lambda *a: None, mesh=mesh)
+    il.load_state(model, state)
+    opt = state.opt
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    seconds = []
+    for idx, seeds in batches:
+        t0 = time.time()
+        opt, _ = trainer.train_step(opt, idx, seeds, 0.005, gen)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+    launches = read_launches()
+    return (_cpu_state(il.snapshot(model, opt)), seconds, launches,
+            torch.cuda.max_memory_allocated(dev))
+
+
+def _cpu_state(state):
+    """{"params/..", "batch_stats/..", "opt_v/.."}: tensors on the CPU."""
+    out = {"params/" + k: v.detach().cpu() for k, v in state.params.items()}
+    out.update({"batch_stats/" + k: v.detach().cpu()
+                for k, v in state.batch_stats.items()})
+    out.update({"opt_v/" + k: v.detach().cpu()
+                for k, v in state.opt.v.items()})
+    return out
+
+
+def _state_gap(a, b, start):
+    """(largest |a - b| over every tensor, the same as a share of the
+    largest |b - start|)."""
+    gap = max(float((a[k] - b[k]).abs().max()) for k in b)
+    moved = max(float((b[k] - start[k]).abs().max()) for k in b)
+    return gap, gap / moved if moved else math.inf
+
+
+def _mean_iou(out):
+    line = [ln for ln in out.splitlines()
+            if ln.startswith("Mean IoU over all meta-test tasks:")]
+    return float(line[0].split(":")[1]) if line else math.nan
+
+
+def _mesh_cli_argv(workdir, ranks):
+    return TRAIN_ARGV + MESH_CUT + ["--mesh_tasks", str(ranks),
+                                    "--checkpoint", workdir]
+
+
+def mesh_rank(outdir):
+    """One rank of the `mesh` phase's world of 2 on the one card (run under
+    `torch.distributed.run`): the meta-training CLI with `--mesh_tasks 2`,
+    a 1x2 (task, data) library meta-step with the sync-BN model and the
+    data-parallel joint steps. Each part's kernel counts are set to 0
+    before it and summed over the ranks after it; each rank writes what it
+    measured to `outdir`, rank 0 its states too."""
+    import torch
+    import torch.distributed as dist
+    from mliis_tpu_torch.meta import learners as lr
+    from mliis_tpu_torch.meta.inner_loop import LossConfig, OptimizerConfig
+    from mliis_tpu_torch.parallel import mesh as mesh_lib
+    dev = mesh_lib.init_world(MESH_RANKS, "cuda", log_fn=log)
+    rank = dist.get_rank()
+    result = {"rank": rank, "backend": dist.get_backend(), "device": str(dev)}
+    states = {}
+
+    def summed(launches):
+        t = torch.tensor([float(launches[k]) for k in KERNELS], device=dev)
+        dist.all_reduce(t)
+        return {k: int(v) for k, v in zip(KERNELS, t.tolist())}
+
+    ckpt_dir = os.path.join(outdir, "cli_w2")
+    state, out, launches, wall, peak = _run_cli(
+        _mesh_cli_argv(ckpt_dir, MESH_RANKS), dev)
+    result["cli"] = {"launches": summed(launches), "rank_launches": launches,
+                     "wall": wall, "peak": peak, "iou": _mean_iou(out)}
+    if rank == 0:
+        with open(os.path.join(ckpt_dir, "phase_timings.jsonl")) as f:
+            result["cli"]["timings"] = json.loads(f.readline())
+        states["cli"] = _cpu_state(state)
+    del state
+
+    mesh = mesh_lib.make_task_data_mesh(1, MESH_RANKS, dev)
+    model, (imgs, msks, counts), cfg, state = _mesh_meta_setup(
+        dev, mesh_lib.DATA_AXIS)
+    step = mesh_lib.make_sharded_train_step(model, LossConfig(),
+                                            OptimizerConfig("sgd"), cfg, mesh)
+    draws = lr.draw_meta_step(MESH_STEP_SEED, counts, cfg, 10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.time()
+    out_state = step(state, imgs, msks, draws, 0.1, 5e-4)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    result["step_1x2"] = {"launches": summed(launches),
+                          "rank_launches": launches,
+                          "wall": time.time() - t0,
+                          "peak": torch.cuda.max_memory_allocated(dev)}
+    if rank == 0:
+        states["step_1x2"] = _cpu_state(out_state)
+    del model, state, out_state, imgs, msks, step, draws
+    torch.cuda.empty_cache()
+
+    jmesh = mesh_lib.make_data_mesh(MESH_RANKS, dev)
+    model, ds, jcfg, batches, state = _mesh_joint_setup(dev,
+                                                        mesh_lib.DATA_AXIS)
+    jstate, seconds, launches, peak = _run_joint(model, ds, jcfg, batches,
+                                                 state, dev, jmesh)
+    result["joint"] = {"launches": summed(launches),
+                       "rank_launches": launches, "seconds": seconds,
+                       "peak": peak}
+    if rank == 0:
+        states["joint"] = jstate
+        torch.save(states, os.path.join(outdir, "states.pt"))
+    with open(os.path.join(outdir, "rank{}.json".format(rank)), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _launch_ranks(outdir, timeout):
+    """`python -m torch.distributed.run --standalone --nproc_per_node 2
+    chip_smoke.py --mesh-rank outdir`, its whole process group killed if it
+    outlives `timeout`; returns the exit code."""
+    import signal
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(MESH_RANKS), os.path.abspath(__file__),
+         "--mesh-rank", outdir], start_new_session=True)
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise
+
+
+def phase_mesh(dev):
+    """The sharded strategies (parallel/mesh.py) on the one card.
+
+    1. A world of 1 on NCCL: the meta-training CLI with `--mesh_tasks 1`
+       (the `train` phase's flags and store, 1 meta-iter, 10 evaluation
+       steps a task); then one library meta-step unsharded and one through
+       `make_sharded_train_step` on a task mesh of 1, from the same state
+       and draw seed (dropout and drop-connect 0), and 2 unsharded joint
+       steps at batch 64 (the references of part 2).
+    2. A world of 2 on the card over gloo (`torch.distributed.run`): the
+       CLI with `--mesh_tasks 2`, a 1x2 (task, data) meta-step with the
+       sync-BN model and 2 data-parallel joint steps (32 a rank).
+    Each sharded state is held against its unsharded one (`_state_gap`),
+    the CLIs' mean IoUs against each other, and each run's launches are
+    exact: `full_pass` summed over the ranks equals the unsharded count on
+    the task axis and twice it on the data axis (each rank augments its
+    half of every batch); `fused_light_augment` is 1 a rank a step.
+    Returns {path: launches}."""
+    import shutil
+    import tempfile
+    import torch
+    from mliis_tpu_torch.cli import args as args_lib
+    from mliis_tpu_torch.meta import learners as lr
+    from mliis_tpu_torch.meta.inner_loop import (LossConfig, OptimizerConfig,
+                                                 init_model_state)
+    from mliis_tpu_torch.models.efficientlab import EfficientLab
+    from mliis_tpu_torch.parallel import mesh as mesh_lib
+    t_phase = time.time()
+    workdir = tempfile.mkdtemp(prefix="mesh_smoke_")
+    counts, failed = {}, []
+
+    def check(path, launches, expect, ok, text):
+        counts[path] = launches
+        log("mesh[{}]: {} | launches {} (expect {})".format(
+            path, text, launches, expect))
+        if launches != expect or not ok:
+            failed.append(path)
+
+    try:
+        argv = _mesh_cli_argv(os.path.join(workdir, "cli_w1"), 1)
+        args = args_lib.argument_parser().parse_args(argv)
+        n_test = max(args.synthetic_tasks // 4, 1)
+        cli_expect, terms = _expected_train_launches(
+            args, args.synthetic_tasks - n_test, n_test)
+        cli_expect = {"full_pass": cli_expect, "cheap_pass": 0,
+                      "fused_light_augment": 0}
+        init = EfficientLab(**args_lib.model_kwargs(args))
+        init.reset_parameters(torch.Generator().manual_seed(args.seed))
+        cli_start = _cpu_state(init_model_state(init,
+                                                OptimizerConfig("sgd")))
+        state_w1, out, launches, wall, peak = _run_cli(argv, dev)
+        with open(os.path.join(workdir, "cli_w1",
+                               "phase_timings.jsonl")) as f:
+            t_w1 = json.loads(f.readline())
+        iou_w1 = _mean_iou(out)
+        cli_w1 = _cpu_state(state_w1)
+        del state_w1
+        backend_w1 = re.search(r"torch.distributed: a world of 1 on (\w+)",
+                               out)
+        check("mesh_cli_w1", launches, cli_expect,
+              backend_w1 is not None and backend_w1.group(1) == "nccl"
+              and math.isfinite(iou_w1),
+              "run_metasegnet --mesh_tasks 1 | backend {} | wall {:.2f} s | "
+              "{:.3f} s a meta-step | mean IoU {:.4f} | peak memory {:.2f} GB"
+              " | expected launches {}".format(
+                  backend_w1.group(1) if backend_w1 else None, wall,
+                  t_w1["meta_step"]["mean_s"], iou_w1, peak / 1e9, terms))
+
+        step_expect = {"full_pass": 5 * 58, "cheap_pass": 0,
+                       "fused_light_augment": 0}
+        model, (imgs, msks, mcounts), cfg, state = _mesh_meta_setup(dev)
+        start = _cpu_state(state)
+        walls, refs = {}, {}
+
+        def library_step(name, step, what):
+            draws = lr.draw_meta_step(MESH_STEP_SEED, mcounts, cfg, 10)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.time()
+            refs[name] = _cpu_state(step(state, imgs, msks, draws, 0.1,
+                                         5e-4))
+            torch.cuda.synchronize()
+            walls[name] = time.time() - t0
+            launches = read_launches()
+            gap = _state_gap(refs[name], refs["unsharded"], start)
+            check("mesh_step_" + name, launches, step_expect,
+                  gap[1] <= MESH_TASK_BAR,
+                  "library meta-step ({}) | wall {:.3f} s | largest gap to "
+                  "the unsharded step {:.3g} ({:.3g} of its largest change; "
+                  "bar {})".format(what, walls[name], gap[0], gap[1],
+                                   MESH_TASK_BAR))
+
+        library_step("unsharded", lr.make_chained_train_step(
+            model, LossConfig(), OptimizerConfig("sgd"), cfg),
+            "chained, no mesh")
+        with mesh_lib.world(1, dev, workdir, log_fn=log):
+            library_step("w1", mesh_lib.make_sharded_train_step(
+                model, LossConfig(), OptimizerConfig("sgd"), cfg,
+                mesh_lib.make_task_mesh(1, dev)),
+                "make_sharded_train_step, task mesh of 1 on NCCL")
+        del model, state, imgs, msks
+        torch.cuda.empty_cache()
+
+        model, ds, jcfg, batches, state = _mesh_joint_setup(dev)
+        jstart = _cpu_state(state)
+        joint_ref, j_seconds, launches, j_peak = _run_joint(
+            model, ds, jcfg, batches, state, dev)
+        check("mesh_joint_unsharded", launches,
+              {"full_pass": 0, "cheap_pass": 0,
+               "fused_light_augment": MESH_JOINT_STEPS}, True,
+              "joint steps at batch 64, 1001 channels, unsharded | seconds "
+              "a step {} | peak memory {:.2f} GB".format(
+                  ["{:.4f}".format(s) for s in j_seconds], j_peak / 1e9))
+        del model, ds, batches, state
+        torch.cuda.empty_cache()
+
+        outdir = os.path.join(workdir, "w2")
+        os.makedirs(outdir)
+        t0 = time.time()
+        code = _launch_ranks(outdir, timeout=600)
+        log("mesh: the world of 2 ran {:.2f} s, exit code {}".format(
+            time.time() - t0, code))
+        if code != 0:
+            raise AssertionError("the world of 2 failed")
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(outdir, "rank{}.json".format(r))) as f:
+                ranks.append(json.load(f))
+        states = torch.load(os.path.join(outdir, "states.pt"))
+        backends = {r["backend"] for r in ranks}
+        log("mesh: world of 2 | backend {} | devices {}".format(
+            sorted(backends), [r["device"] for r in ranks]))
+        if backends != {"gloo"}:
+            failed.append("mesh_backend_w2")
+
+        cli = ranks[0]["cli"]
+        gap = _state_gap(states["cli"], cli_w1, cli_start)
+        check("mesh_cli_w2", cli["launches"], cli_expect,
+              abs(cli["iou"] - iou_w1) <= MESH_IOU_BAR
+              and gap[1] <= MESH_TASK_BAR,
+              "run_metasegnet --mesh_tasks 2 | wall {:.2f} s | {:.3f} s a "
+              "meta-step (world of 1: {:.3f}) | mean IoU {:.4f} (world of "
+              "1: {:.4f}; bar {}) | largest gap to the world of 1's state "
+              "{:.3g} ({:.3g} of its largest change; bar {}) | per-rank "
+              "full_pass launches {} | peak memory per rank {} GB".format(
+                  cli["wall"], cli["timings"]["meta_step"]["mean_s"],
+                  t_w1["meta_step"]["mean_s"], cli["iou"], iou_w1,
+                  MESH_IOU_BAR, gap[0], gap[1], MESH_TASK_BAR,
+                  [r["cli"]["rank_launches"]["full_pass"] for r in ranks],
+                  ["{:.2f}".format(r["cli"]["peak"] / 1e9) for r in ranks]))
+
+        s12 = ranks[0]["step_1x2"]
+        gap = _state_gap(states["step_1x2"], refs["unsharded"], start)
+        check("mesh_step_1x2", s12["launches"],
+              {"full_pass": MESH_RANKS * 5 * 58, "cheap_pass": 0,
+               "fused_light_augment": 0},
+              gap[1] <= MESH_DATA_BAR and all(
+                  r["step_1x2"]["rank_launches"]["full_pass"] == 5 * 58
+                  for r in ranks),
+              "1x2 (task, data) meta-step, sync-BN | wall {} s (unsharded "
+              "{:.3f}, task mesh of 1 {:.3f}) | largest gap to the "
+              "unsharded step {:.3g} ({:.3g} of its largest change; bar "
+              "{}) | peak memory per rank {} GB".format(
+                  ["{:.3f}".format(r["step_1x2"]["wall"]) for r in ranks],
+                  walls["unsharded"], walls["w1"], gap[0], gap[1],
+                  MESH_DATA_BAR, ["{:.2f}".format(r["step_1x2"]["peak"] / 1e9)
+                                  for r in ranks]))
+
+        js = ranks[0]["joint"]
+        gap = _state_gap(states["joint"], joint_ref, jstart)
+        check("mesh_joint_w2", js["launches"],
+              {"full_pass": 0, "cheap_pass": 0,
+               "fused_light_augment": MESH_RANKS * MESH_JOINT_STEPS},
+              gap[1] <= MESH_JOINT_BAR and all(
+                  r["joint"]["rank_launches"]["fused_light_augment"]
+                  == MESH_JOINT_STEPS for r in ranks),
+              "data-parallel joint steps, 32 a rank | seconds a step per "
+              "rank {} (unsharded {}) | largest gap to the unsharded steps "
+              "{:.3g} ({:.3g} of their largest change; bar {}) | peak "
+              "memory per rank {} GB (unsharded {:.2f})".format(
+                  [["{:.4f}".format(s) for s in r["joint"]["seconds"]]
+                   for r in ranks], ["{:.4f}".format(s) for s in j_seconds],
+                  gap[0], gap[1], MESH_JOINT_BAR,
+                  ["{:.2f}".format(r["joint"]["peak"] / 1e9)
+                   for r in ranks], j_peak / 1e9))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log("mesh: the phase's wall {:.2f} s".format(time.time() - t_phase))
+    if failed:
+        raise AssertionError("the sharded strategies did not run as "
+                             "expected: {}".format(", ".join(failed)))
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1396,6 +1830,7 @@ def main() -> int:
     by_path["joint"] = phase_joint(dev)
     by_path.update(phase_train(dev))
     by_path.update(phase_decoders(dev))
+    by_path.update(phase_mesh(dev))
     # Each kernel's `launches` is read from the path it carries: the
     # meta-step for full_pass, the split-route evaluation for cheap_pass,
     # the joint run for fused_light_augment; every path's counts beside.
@@ -1417,4 +1852,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(mesh_rank(sys.argv[2]))
     sys.exit(main())

@@ -37,6 +37,7 @@ def main():
     from mliis_tpu_torch.device import resolve_device
     from mliis_tpu_torch.meta import inner_loop as il
     from mliis_tpu_torch.meta import learners as lr
+    from mliis_tpu_torch.meta.episodes import draw_seed
     from mliis_tpu_torch.models.efficientlab import EfficientLab
     from mliis_tpu_torch.ops import augment_kernels as ak
 
@@ -61,8 +62,8 @@ def main():
                                           one_cfg)
 
     def meta_step(state, cfg=cfg, step=step):
-        draws = lr.draw_meta_step(gen, counts, cfg, n_max=10)
-        return step(state, imgs, msks, draws, gen, 0.1, 5e-4)
+        draws = lr.draw_meta_step(draw_seed(gen), counts, cfg, n_max=10)
+        return step(state, imgs, msks, draws, 0.1, 5e-4)
 
     def timed(fn, state):
         torch.cuda.synchronize()

@@ -6,9 +6,11 @@ extensions), and the same functions from the flat namespace to the typed
 configs: `model_kwargs`, `pallas_augment_mode`, `loss_config`,
 `opt_config`, `meta_train_config`, `train_loop_config` and `eval_config`.
 
-Flags whose feature is not ported are parsed and then refused by
-`check_ported`, each naming its ROADMAP.md item. The JAX package's
-execution-strategy flags (`--chain_tasks`, `--chain_eval_chunk`,
+`--rng_impl rbg` is parsed and then refused by `check_ported`: the port
+draws with torch's Philox generators. `--mesh_tasks N` and `--mesh_data M`
+shard the meta-training and evaluation over N x M ranks, one process a
+rank under `torchrun --nproc_per_node` (parallel/mesh.py). The JAX
+package's execution-strategy flags (`--chain_tasks`, `--chain_eval_chunk`,
 `--task_chunk_size`, `--task_group_size`) are accepted and change no
 result: the port runs tasks one after another.
 """
@@ -164,9 +166,14 @@ def argument_parser():
         help='Accepted for compatibility; no effect (evaluation tasks run '
              'one after another).')
     add('--mesh_tasks', type=int, default=0,
-        help='Task-sharded meta-training and evaluation: not ported.')
+        help='Shard the meta-batch and the evaluations\' tasks over this '
+             'many ranks along a "task" mesh axis: one process a rank, '
+             'launched with torchrun --nproc_per_node (mesh_tasks x '
+             'max(1, mesh_data)); 1 runs a world of 1 without torchrun.')
     add('--mesh_data', type=int, default=0,
-        help='Data-sharded meta-training: not ported.')
+        help='With --mesh_tasks: meta-train on a (mesh_tasks, mesh_data) '
+             'mesh, every inner batch split over the data axis with '
+             'sync-BN; evaluation shards tasks over all the ranks.')
     add('--rng_impl', choices=['threefry', 'rbg'], default='threefry',
         help='threefry: the port\'s Philox generators; rbg is not '
              'available.')
@@ -182,17 +189,8 @@ def argument_parser():
 
 
 def check_ported(args) -> None:
-    """Raise NotImplementedError, naming its ROADMAP.md item, for the first
-    set flag whose feature the port does not have."""
-    unported = [
-        (args.mesh_tasks or args.mesh_data, "--mesh_tasks / --mesh_data",
-         "task- and data-sharded meta-training", 6),
-    ]
-    for is_set, flag, feature, item in unported:
-        if is_set:
-            raise NotImplementedError(
-                "{}: {} is not ported (ROADMAP.md, queue A, item {})".format(
-                    flag, feature, item))
+    """Raise NotImplementedError for `--rng_impl rbg`, which the port does
+    not have."""
     if args.rng_impl != "threefry":
         raise NotImplementedError(
             "--rng_impl {}: the port draws with torch's Philox generators "

@@ -11,8 +11,14 @@ with the same flags:
 
 It runs on the card; `main(argv, device="cpu")` runs it on the CPU.
 `--pallas_augment auto|on` augments with the `fused_light_augment` kernel,
-`off` with its plain version. `--mesh_data` (data-parallel training) is
-not ported and raises.
+`off` with its plain version. `--mesh_data M` trains data-parallel over M
+ranks with sync-BN, one process a rank (`JointTrainer(mesh=)`):
+
+    torchrun --nproc_per_node M -m mliis_tpu_torch.cli.joint_train \
+        --mesh_data M ... --checkpoint DIR
+
+`--mesh_data 1` without torchrun starts a world of 1 by itself. Rank 0
+alone logs and writes.
 """
 import argparse
 import os
@@ -31,6 +37,7 @@ from mliis_tpu_torch.joint.trainer import (JointDataset, JointTrainConfig,
                                            joint_dataset_from_task_store)
 from mliis_tpu_torch.meta.inner_loop import OptimizerConfig, init_model_state
 from mliis_tpu_torch.models.efficientlab import EfficientLab
+from mliis_tpu_torch.parallel import mesh as mesh_lib
 from mliis_tpu_torch.utils import checkpoint as ckpt_lib
 
 
@@ -80,7 +87,8 @@ def parse_args(argv=None):
         help='auto and on: the fused_light_augment kernel; off: its plain '
              'version.')
     add('--mesh_data', type=int, default=0,
-        help='Data-parallel training over this many devices: not ported.')
+        help='Data-parallel training over this many ranks (one process a '
+             'rank, launched with torchrun --nproc_per_node), sync-BN.')
     return parser.parse_args(argv)
 
 
@@ -142,12 +150,15 @@ def main(argv=None, device=None):
     to cuda."""
     start = time.time()
     args = parse_args(argv)
-    if args.mesh_data:
-        raise NotImplementedError(
-            "--mesh_data: the data-parallel joint trainer is not ported "
-            "(ROADMAP.md, 'data-parallel joint trainer with parallel/')")
-    dev = resolve_device(device)
+    if not args.mesh_data:
+        return _train(args, resolve_device(device), None, start)
+    with mesh_lib.world(args.mesh_data, device, args.checkpoint) as dev:
+        mesh = mesh_lib.make_data_mesh(args.mesh_data, dev)
+        with mesh_lib.quiet_unless_writer():
+            return _train(args, dev, mesh, start)
 
+
+def _train(args, dev, mesh, start):
     t0 = time.time()
     train_ds, test_ds = _datasets(args)
     print("datasets: {} train and {} test examples built in {:.2f} s".format(
@@ -160,7 +171,8 @@ def main(argv=None, device=None):
         n_classes=num_classes, separate_background_channel=True,
         feature_extractor_name=args.feature_extractor_name,
         rsd=tuple(args.rsd) if args.rsd else None,
-        final_layer_dropout_rate=args.final_layer_dropout_rate)
+        final_layer_dropout_rate=args.final_layer_dropout_rate,
+        bn_axis_name=None if mesh is None else mesh_lib.DATA_AXIS)
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
     model.to(dev)
     opt_cfg = OptimizerConfig(name="sgd" if args.sgd else "adam")
@@ -181,7 +193,7 @@ def main(argv=None, device=None):
         use_pallas_augment={'auto': None, 'on': True,
                             'off': False}[args.pallas_augment])
     trainer = JointTrainer(model, train_ds, test_ds, config, opt_cfg,
-                           device=dev)
+                           device=dev, mesh=mesh)
     state = trainer.train(state, args.checkpoint,
                           torch.Generator(device=dev).manual_seed(
                               args.seed + 1))

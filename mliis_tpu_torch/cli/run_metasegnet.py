@@ -20,9 +20,20 @@ JAX driver (mliis_tpu/cli/run_metasegnet.py:70-73, 248-294),
 fine-tuned checkpoints (`--save_fine_tuned_checkpoints_train` on the train
 set, `--save_fine_tuned_checkpoints` on the test set, both under
 `--save_fine_tuned_checkpoints_dir`), and `--export_serving_artifact` is
-written after the results JSON. Flags of features that are not ported
-raise NotImplementedError naming their ROADMAP.md item
-(`args.check_ported`).
+written after the results JSON. `--rng_impl rbg` raises
+NotImplementedError (`args.check_ported`).
+
+`--mesh_tasks N` (and `--mesh_data M`) run the protocol on N x M ranks,
+one process a rank, as the JAX driver runs it on N x M devices
+(mliis_tpu/cli/run_metasegnet.py:152-170):
+
+    torchrun --nproc_per_node N -m mliis_tpu_torch.cli.run_metasegnet \
+        --mesh_tasks N ... --checkpoint DIR
+
+Meta-training shards as `meta/train.train_gecko` says; UHO and the
+evaluations shard their tasks over a task mesh of all the ranks; the
+k-shot curves run whole on every rank. Rank 0 alone logs and writes;
+`--mesh_tasks 1` without torchrun starts a world of 1 by itself.
 """
 import dataclasses
 import datetime
@@ -50,6 +61,7 @@ from mliis_tpu_torch.meta.uho_eval import (EarlyStoppingEvaluator,
                                            optimize_update_hyperparams)
 from mliis_tpu_torch.models.efficientlab import EfficientLab
 from mliis_tpu_torch.ops.meta_math import tree_count_params
+from mliis_tpu_torch.parallel import mesh as mesh_lib
 from mliis_tpu_torch.utils import checkpoint as ckpt_lib
 from mliis_tpu_torch.utils import profiling
 from mliis_tpu_torch.utils.export import save_serving_artifact
@@ -82,19 +94,33 @@ def load_datasets(args):
 def main(argv=None, device=None):
     """Run the protocol on `device` (default cuda)."""
     start_time = datetime.datetime.now()
-    print("Experiment started at: {}".format(start_time))
     args = args_lib.argument_parser().parse_args(argv)
     args_lib.check_ported(args)
-    dev = resolve_device(device)
-    if args.profile_dir:
+    if args.mesh_data > 1 and not args.mesh_tasks:
+        raise SystemExit("--mesh_data requires --mesh_tasks (use "
+                         "--mesh_tasks 1 for pure data parallelism)")
+    if not args.mesh_tasks:
+        return _traced(args, resolve_device(device), start_time, None)
+    size = args.mesh_tasks * max(1, args.mesh_data)
+    with mesh_lib.world(size, device, args.checkpoint) as dev:
+        # UHO and the evaluations shard tasks over all the ranks; the
+        # (task, data) layout is the training step's (meta/train.py).
+        mesh = mesh_lib.make_task_mesh(size, dev)
+        with mesh_lib.quiet_unless_writer():
+            return _traced(args, dev, start_time, mesh)
+
+
+def _traced(args, dev, start_time, mesh):
+    print("Experiment started at: {}".format(start_time))
+    if args.profile_dir and mesh_lib.is_writer():
         with profiling.trace(args.profile_dir, dev) as path:
-            state = _main_impl(args, dev, start_time)
+            state = _main_impl(args, dev, start_time, mesh)
         print("Wrote the profiler trace to {}".format(path))
         return state
-    return _main_impl(args, dev, start_time)
+    return _main_impl(args, dev, start_time, mesh)
 
 
-def _main_impl(args, dev, start_time):
+def _main_impl(args, dev, start_time, mesh):
     if args.optimize_update_hyperparms_on_val_set and not args.num_val_tasks:
         raise ValueError(
             "Must specify num_val_tasks > 0 to optimize update hyperparams.")
@@ -170,7 +196,8 @@ def _main_impl(args, dev, start_time):
             model, loss_cfg, opt_cfg, val_store, num_shots=args.shots,
             replacement=args.replacement, augment=args.augment,
             weight_decay_rate=args.weight_decay,
-            pallas_augment=args_lib.pallas_augment_mode(args), device=dev)
+            pallas_augment=args_lib.pallas_augment_mode(args), device=dev,
+            mesh=mesh)
         estimated_lr, estimated_steps = optimize_update_hyperparams(
             es_eval, state, generator, min_steps=args.min_steps,
             max_steps=args.max_steps,
@@ -230,6 +257,8 @@ def _main_impl(args, dev, start_time):
             eval_inner_iters=eval_inner_iters, lr=lr,
             aug_rate=args.aug_rate,
             pallas_augment=args_lib.pallas_augment_mode(args), device=dev,
+            csv_outpath=("k-shot-results.csv" if mesh_lib.is_writer()
+                         else None),
             **kshot_kwargs)
         return state
 
@@ -238,7 +267,7 @@ def _main_impl(args, dev, start_time):
     mean_train_iou = float("nan")
     if train_store is not None:
         train_evaluator = GeckoEvaluator(model, loss_cfg, opt_cfg, eval_cfg,
-                                         train_store, device=dev)
+                                         train_store, device=dev, mesh=mesh)
         mean_train_iou, _ = evaluate_gecko(
             train_evaluator, state, generator, lr=lr,
             num_samples=args.eval_samples, serially_eval_all_tasks=False,
@@ -254,7 +283,7 @@ def _main_impl(args, dev, start_time):
     print('Evaluating {}-shot learning on meta-{} tasks.'.format(
         args.shots, test_set_string))
     evaluator = GeckoEvaluator(model, loss_cfg, opt_cfg, eval_cfg,
-                               target_store, device=dev)
+                               target_store, device=dev, mesh=mesh)
     mean_test_iou, task_name_iou_map = evaluate_gecko(
         evaluator, state, generator, lr=lr, num_samples=args.eval_samples,
         serially_eval_all_tasks=args.serially_eval_all_test_tasks,
@@ -269,6 +298,8 @@ def _main_impl(args, dev, start_time):
     # Do NOT change this print (it's used to grep logs):
     print("Mean IoU over all meta-test tasks: {}".format(mean_test_iou))
 
+    if not mesh_lib.is_writer():
+        return state
     os.makedirs(args.checkpoint, exist_ok=True)
     results_path = os.path.join(args.checkpoint, "meta-test_results.json")
     with open(results_path, "w") as f:

@@ -25,8 +25,17 @@ learning-rate anneal, periodic validation and checkpoints.
     here; `steps_per_launch` only groups the host's draws (the batches'
     seeds). Randomness comes from one explicit `torch.Generator` on the
     training device.
-The data-parallel trainer (`mesh=`, sync-BN) is not ported (ROADMAP.md).
+  - With `mesh` (a ("data",) mesh, `parallel/mesh.make_data_mesh`) the
+    trainer is data-parallel, one process a rank: every rank draws the
+    whole batch's indices and seeds alike and takes its contiguous slice
+    of both, so `fused_light_augment` draws for each sample what the
+    whole batch would; the model's batch norms sync their moments over
+    the axis (it must be built with `bn_axis_name="data"`), and the loss
+    and gradients are averaged over it. The chunked head works on the
+    local batch. Dropout and drop-connect draw each rank's own stream.
+    Rank 0 alone writes the metrics and checkpoints and logs.
 """
+import contextlib
 import dataclasses
 import os
 import time
@@ -38,12 +47,14 @@ import torch.nn.functional as F
 
 from mliis_tpu_torch.data.task_store import TaskStore
 from mliis_tpu_torch.device import resolve_device
+from mliis_tpu_torch.meta import episodes
 from mliis_tpu_torch.meta.inner_loop import (ModelState, OptimizerConfig,
                                              OptState, apply_optimizer_,
                                              load_state, snapshot)
 from mliis_tpu_torch.ops import augment_kernels
 from mliis_tpu_torch.ops.losses import l2_term
 from mliis_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw
+from mliis_tpu_torch.parallel import mesh as mesh_lib
 from mliis_tpu_torch.utils import checkpoint as ckpt_lib
 from mliis_tpu_torch.utils.logging import MetricsWriter
 
@@ -142,12 +153,29 @@ class JointTrainConfig:
 
 
 class JointTrainer:
-    """Single-device joint trainer; the model trains in place."""
+    """Single-device or data-parallel joint trainer; the model trains in
+    place."""
 
     def __init__(self, model: torch.nn.Module, dataset: JointDataset,
                  val_dataset: JointDataset, config: JointTrainConfig,
                  opt_config: OptimizerConfig = OptimizerConfig("sgd"),
-                 device=None, log_fn: Callable = print):
+                 device=None, log_fn: Callable = print, mesh=None):
+        self.mesh = mesh
+        self._shard = slice(None)
+        if mesh is not None:
+            n = mesh_lib.axis_size_of(mesh, mesh_lib.DATA_AXIS)
+            if config.batch_size % n:
+                raise ValueError("batch_size must be a multiple of the "
+                                 "data-mesh size")
+            bn_axis = getattr(model, "bn_axis_name", None)
+            if bn_axis != mesh_lib.DATA_AXIS:
+                raise ValueError(
+                    "data-parallel joint training requires the model built "
+                    "with bn_axis_name='data' (sync-BN); got {!r}".format(
+                        bn_axis))
+            local = config.batch_size // n
+            offset = mesh.get_local_rank(mesh_lib.DATA_AXIS) * local
+            self._shard = slice(offset, offset + local)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.config = config
@@ -178,22 +206,33 @@ class JointTrainer:
                    generator: Optional[torch.Generator] = None
                    ) -> Tuple[OptState, torch.Tensor]:
         """One SGD step on the examples `idx`, augmented with `seeds` ([B]
-        int32) when the config augments. Returns the new OptState and the
-        loss (a device tensor: nothing here waits for the device)."""
+        int32) when the config augments; `generator` draws the model's
+        dropout and drop-connect. With a mesh, `idx` and `seeds` are the
+        whole batch's and this rank takes its slice. Returns the new
+        OptState and the loss (a device tensor: nothing here waits for the
+        device)."""
         cfg = self.config
+        idx = idx[self._shard]
         images = self._images[idx].float()
         labels = self._labels[idx]
         if cfg.augment:
-            images, masks = self._augment(seeds, images, labels.float(),
+            images, masks = self._augment(seeds[self._shard].contiguous(),
+                                          images, labels.float(),
                                           prob_original=0.0)
             labels = masks
-        low_logits, _ = self.model(images, train=True, generator=generator,
-                                   upsample=False)
-        loss = resized_cross_entropy(low_logits, labels, cfg.label_smoothing)
-        del low_logits
-        if cfg.l2:
-            loss = loss + l2_term(self._named_params)
-        grads = torch.autograd.grad(loss, self._params)
+        with (contextlib.nullcontext() if self.mesh is None
+              else mesh_lib.bound(self.mesh)):
+            low_logits, _ = self.model(images, train=True,
+                                       generator=generator, upsample=False)
+            loss = resized_cross_entropy(low_logits, labels,
+                                         cfg.label_smoothing)
+            del low_logits
+            if cfg.l2:
+                loss = loss + l2_term(self._named_params)
+            grads = torch.autograd.grad(loss, self._params)
+            if self.mesh is not None:
+                *grads, loss = mesh_lib.pmean_grads(
+                    list(grads) + [loss.detach()], mesh_lib.DATA_AXIS)
         opt = apply_optimizer_(self._params, grads, opt, lr, self.opt_config)
         return opt, loss.detach()
 
@@ -250,8 +289,15 @@ class JointTrainer:
         timeline on CUDA) to `<save_dir>/joint_train_metrics.jsonl`."""
         cfg = self.config
         dev = self.device
+        writes = mesh_lib.is_writer()
+        log_fn = mesh_lib.writer_log(log_fn)
         os.makedirs(save_dir, exist_ok=True)
-        writer = MetricsWriter(save_dir, "joint_train")
+        writer = MetricsWriter(save_dir, "joint_train") if writes else None
+        model_generator = generator
+        if self.mesh is not None:
+            state = mesh_lib.replicate_to_mesh(state, self.mesh)
+            model_generator = episodes.shard_generator(generator,
+                                                       self._shard.start)
         load_state(self.model, state)
         opt = state.opt
         steps_per_epoch = cfg.steps_per_epoch or max(
@@ -280,7 +326,7 @@ class JointTrainer:
                                       dtype=torch.int32)
                 for i in range(launch_steps):
                     opt, _ = self.train_step(opt, epoch_idx[done + i],
-                                             seeds[i], lr, generator)
+                                             seeds[i], lr, model_generator)
                     marks.append(self._mark())
                 done += launch_steps
             if dev.type == "cuda":
@@ -288,11 +334,13 @@ class JointTrainer:
             elapsed = time.time() - start
             log_fn("Epoch {}: lr {:.2e}, {} steps, {:.2f} iters/s".format(
                 epoch, lr, steps_per_epoch, steps_per_epoch / elapsed))
-            writer.scalar("iters_per_sec", steps_per_epoch / elapsed, epoch)
-            for i in range(steps_per_epoch):
-                writer.scalar("step_seconds",
-                              self._seconds(marks[i], marks[i + 1]),
-                              epoch * steps_per_epoch + i)
+            if writes:
+                writer.scalar("iters_per_sec", steps_per_epoch / elapsed,
+                              epoch)
+                for i in range(steps_per_epoch):
+                    writer.scalar("step_seconds",
+                                  self._seconds(marks[i], marks[i + 1]),
+                                  epoch * steps_per_epoch + i)
 
             if epoch % cfg.eval_interval == 0:
                 val_ious, val_losses = [], []
@@ -307,16 +355,22 @@ class JointTrainer:
                 ious.append(iou)
                 log_fn("Val IoU at epoch {}: {} (loss {})".format(
                     epoch, iou, float(np.nanmean(val_losses))))
-                writer.scalar("val_IoU", iou, epoch)
-                writer.scalar("val_loss", float(np.nanmean(val_losses)),
-                              epoch)
+                if writes:
+                    writer.scalar("val_IoU", iou, epoch)
+                    writer.scalar("val_loss", float(np.nanmean(val_losses)),
+                                  epoch)
 
-            if (epoch % cfg.save_checkpoint_every_n_epochs == 0
-                    or epoch == cfg.epochs - 1):
+            if writes and (epoch % cfg.save_checkpoint_every_n_epochs == 0
+                           or epoch == cfg.epochs - 1):
                 ckpt_lib.save_checkpoint(save_dir, snapshot(self.model, opt),
                                          epoch)
-            if time_deadline is not None and time.time() > time_deadline:
-                break
-        writer.close()
+            if time_deadline is not None:
+                late = time.time() > time_deadline
+                if self.mesh is not None:   # all ranks stop at one epoch
+                    late = mesh_lib.any_rank(late, dev)
+                if late:
+                    break
+        if writes:
+            writer.close()
         log_fn("Training complete. History: {}".format(ious))
         return snapshot(self.model, opt)

@@ -7,12 +7,59 @@ meta-step makes no host round trip:
   - without-replacement mini-batches are concatenated permutations of the
     support set (epochs whose partial batches carry across boundaries);
   - with-replacement batches draw `batch_size` distinct examples each.
+
+The streams are slot-indexed, as the JAX package's `slot_keys`: a
+meta-step draws one seed from the run's generator (`draw_seed`), and its
+meta-batch slot s (or an evaluation's task j) draws everything, its task,
+shots, batches, augmentation and dropout, from its own generator seeded
+from that seed and s (`slot_generator`). The draws of a slot are then the
+same whichever rank of a mesh runs it and whatever else runs beside it.
 """
+import zlib
 from typing import Optional, Tuple
 
 import torch
 
 from mliis_tpu_torch.ops.augment import augment_batch
+
+
+_M64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finalizer: a bijection of 64-bit words."""
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A 63-bit seed derived from `seed` and `data` (JAX's fold_in)."""
+    return _mix64(_mix64(seed & _M64) ^ (data & _M64)) >> 1
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One 62-bit seed from `generator` (a host read of one number)."""
+    return int(torch.randint(0, 2 ** 62, (), generator=generator,
+                             device=generator.device))
+
+
+def slot_generator(seed: int, slot: int, device) -> torch.Generator:
+    """The generator of meta-batch slot (or evaluation task) `slot` of
+    the draw seeded `seed`, on `device`."""
+    return torch.Generator(device=device).manual_seed(fold_in(seed, slot))
+
+
+def shard_generator(generator: torch.Generator,
+                    offset: int) -> torch.Generator:
+    """A data shard's own stream beside a slot's shared `generator`: seeded
+    from where that generator stands (its state, read on the host) and
+    the shard's first sample position, leaving the shared stream where it
+    is."""
+    where = zlib.crc32(generator.get_state().numpy().tobytes())
+    return torch.Generator(device=generator.device).manual_seed(
+        fold_in(fold_in(generator.initial_seed(), where), offset))
 
 
 def onehot_mask(mask_u8: torch.Tensor) -> torch.Tensor:
@@ -101,18 +148,24 @@ def assemble_batch(support_images_u8: torch.Tensor,
                    support_masks_u8: torch.Tensor, idx: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    aug_rate: Optional[float] = None, augment: bool = True,
-                   kernels: bool = True
+                   kernels: bool = True, key_offset: int = 0,
+                   key_total: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather one inner-loop batch and augment it.
 
     support_images_u8 [S, H, W, 3] uint8, support_masks_u8 [S, H, W] uint8,
     idx [B]. aug_rate is the probability to augment a sample; None uses the
     Augmenter default gate 6/7; `kernels=False` augments with the kernels'
-    plain versions. Returns float32 images [B, H, W, 3] in [0, 255] and
-    one-hot masks [B, H, W, 2]."""
+    plain versions. When `idx` is one shard's slice of a batch of
+    `key_total` samples split over a mesh data axis, `key_offset` is the
+    slice's first position: the augmentation draws for the whole batch
+    and applies the slice's draws (`augment.augment_batch`). Returns
+    float32 images [B, H, W, 3] in [0, 255] and one-hot masks
+    [B, H, W, 2]."""
     images = support_images_u8[idx].float()
     masks = onehot_mask(support_masks_u8[idx])
     if not augment:
         return images, masks
     prob_original = None if aug_rate is None else 1.0 - aug_rate
-    return augment_batch(generator, images, masks, prob_original, kernels)
+    return augment_batch(generator, images, masks, prob_original, kernels,
+                         key_offset=key_offset, key_total=key_total)

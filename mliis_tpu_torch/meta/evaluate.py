@@ -15,8 +15,13 @@ one compiled shape have no counterpart, and neither do its chunk sizes.
 The draws of an episode (shots, split, batch index matrix) are made by
 `draw_episode` and passed in, as `learners.draw_meta_step` does for a
 meta-step, so a test can inject the indices the JAX key discipline yields.
-The random numbers inside an episode (augmentation, dropout, drop-connect)
-come from the generator passed to it.
+The streams are slot-indexed: an evaluation of a list of tasks draws one
+seed from the caller's generator, and the list's task j draws its episode
+and everything inside it (augmentation, dropout, drop-connect) from its own
+generator (`episodes.slot_generator` of the seed and j). With a mesh
+(`GeckoEvaluator(mesh=)`, `parallel/mesh.make_sharded_eval_chunk`) each
+task rank evaluates its contiguous share of the list and the IoUs are
+all-reduced into place, so every rank returns what one rank alone would.
 
 Predictions use the population batch-norm statistics (train=False), or,
 with `use_batch_stats_at_predict` (the reference's legacy no-is_training
@@ -33,7 +38,9 @@ the same artifacts by running each task's adaptation a second time with
 the same key (mliis_tpu/meta/evaluate.py:291-297); the port's episodes
 draw from a `torch.Generator`, which a second run would have to replay,
 so it keeps the first run's results and spends no device time on a
-second.
+second. Under a mesh rank 0 alone writes them: its own share from the
+scored episodes, the other ranks' tasks by replaying their episodes from
+their generators.
 """
 import dataclasses
 import os
@@ -50,6 +57,7 @@ from mliis_tpu_torch.meta.inner_loop import (LossConfig, ModelState,
                                              OptimizerConfig, make_adapt_fn,
                                              make_lr_array)
 from mliis_tpu_torch.ops.metrics import batched_hard_iou, ci95, nanmean
+from mliis_tpu_torch.parallel import mesh as mesh_lib
 from mliis_tpu_torch.utils import checkpoint as ckpt_lib
 from mliis_tpu_torch.utils import viz
 
@@ -164,21 +172,74 @@ def make_eval_task_fn(model: torch.nn.Module, loss_config: LossConfig,
     return eval_task
 
 
+def make_eval_chunk_fn(model: torch.nn.Module, loss_config: LossConfig,
+                       opt_config: OptimizerConfig, config: EvalConfig,
+                       mesh=None):
+    """eval_chunk(state, store_images, store_masks, store_counts,
+    task_indices, seed, lr, drop_rate, aug_rate, on_episode=None) ->
+    per-task mean IoU [len(task_indices)] float64: task j of the list
+    (store row task_indices[j]) draws from `episodes.slot_generator(seed,
+    j)`. With a `mesh`, this rank evaluates its share of the list
+    (`mesh.share`) and the IoUs are all-reduced over the task axis.
+    `on_episode(j, adapted, query_images, probs)` sees each episode this
+    rank scored. The episode itself is `eval_chunk.episode(state,
+    store_images, store_masks, store_counts, task_indices, j, seed, lr,
+    drop_rate, aug_rate)`."""
+    core = make_adapt_and_predict_fn(model, loss_config, opt_config, config)
+
+    def episode(state, images, masks, counts, task_indices, j, seed, lr,
+                drop_rate, aug_rate):
+        i = task_indices[j]
+        generator = episodes.slot_generator(seed, j, images.device)
+        draws = draw_episode(generator, counts[i], config, images.shape[1])
+        return core(state, images[i], masks[i], draws, generator, lr,
+                    drop_rate, aug_rate)
+
+    def eval_chunk(state, images, masks, counts, task_indices, seed, lr,
+                   drop_rate, aug_rate, on_episode=None) -> np.ndarray:
+        n = len(task_indices)
+        positions = range(n) if mesh is None else mesh_lib.share(n, mesh)
+        results = np.zeros((n,), np.float64)
+        for j in positions:
+            adapted, query_images, query_masks, probs = episode(
+                state, images, masks, counts, task_indices, j, seed, lr,
+                drop_rate, aug_rate)
+            if on_episode is not None:
+                on_episode(j, adapted, query_images, probs)
+            ious = batched_hard_iou((probs > 0.5).float(), query_masks)
+            results[j] = np.nanmean(ious.cpu().numpy())
+        if mesh is not None:
+            results = mesh_lib.all_reduce_sum(
+                [torch.from_numpy(results).to(images.device)],
+                mesh.get_group(mesh_lib.TASK_AXIS))[0].cpu().numpy()
+        return results
+
+    eval_chunk.episode = episode
+    return eval_chunk
+
+
 class GeckoEvaluator:
     """Task-by-task evaluation over a TaskStore held on `device` (the card
     unless the caller asks for the CPU). The module is moved there; the
-    state given to `evaluate` may lie anywhere and is never changed."""
+    state given to `evaluate` may lie anywhere and is never changed. With
+    a `mesh` (a task axis over the world's ranks, each rank's device
+    holding a copy of the store) the tasks shard over the task axis."""
 
     def __init__(self, model: torch.nn.Module, loss_config: LossConfig,
                  opt_config: OptimizerConfig, config: EvalConfig,
-                 store: TaskStore, device=None):
+                 store: TaskStore, device=None, mesh=None):
         self.device = resolve_device(device)
         self.config = config
         self.store = store
+        self.mesh = mesh
         self._model = model.to(self.device)
         self._images, self._masks, self._counts = store.to_torch(self.device)
-        self._adapt_and_predict = make_adapt_and_predict_fn(
-            model, loss_config, opt_config, config)
+        if mesh is None:
+            self._eval_chunk = make_eval_chunk_fn(model, loss_config,
+                                                  opt_config, config)
+        else:
+            self._eval_chunk = mesh_lib.make_sharded_eval_chunk(
+                model, loss_config, opt_config, config, mesh)
 
     def _default_drop_rate(self) -> float:
         """None drop_rate means the model's own final dropout rate."""
@@ -191,25 +252,17 @@ class GeckoEvaluator:
                        aug_rate: Optional[float] = 0.5,
                        on_episode=None) -> np.ndarray:
         """Per-task mean IoU for the given task indices, one task after
-        another; `generator` lies on the evaluator's device. `on_episode(
-        task_index, adapted, query_images, probs)`, where given, sees each
-        episode as it was scored."""
-        drop_rate = self._default_drop_rate() if drop_rate is None \
-            else drop_rate
-        n_max = self._images.shape[1]
-        results = np.zeros((len(task_indices),), np.float64)
-        for j, i in enumerate(task_indices):
-            draws = draw_episode(generator, self._counts[i], self.config,
-                                 n_max)
-            adapted, query_images, query_masks, probs = \
-                self._adapt_and_predict(state, self._images[i],
-                                        self._masks[i], draws, generator, lr,
-                                        drop_rate, aug_rate)
-            if on_episode is not None:
-                on_episode(i, adapted, query_images, probs)
-            ious = batched_hard_iou((probs > 0.5).float(), query_masks)
-            results[j] = np.nanmean(ious.cpu().numpy())
-        return results
+        another (this rank's share of them under a mesh); `generator` lies
+        on the evaluator's device and gives the evaluation's seed.
+        `on_episode(j, adapted, query_images, probs)`, where given, sees
+        each episode this rank scored, j its position in the list."""
+        return self._eval_chunk(
+            state, self._images, self._masks, self._counts,
+            list(task_indices), episodes.draw_seed(generator), lr,
+            self._drop_rate(drop_rate), aug_rate, on_episode)
+
+    def _drop_rate(self, drop_rate: Optional[float]) -> float:
+        return self._default_drop_rate() if drop_rate is None else drop_rate
 
     def evaluate(self, state: ModelState, generator: torch.Generator,
                  lr: float, eval_all_tasks: bool = False,
@@ -237,8 +290,8 @@ class GeckoEvaluator:
         save_dir = (save_fine_tuned_checkpoints_dir
                     if save_fine_tuned_checkpoints else None)
 
-        def export(i, adapted, query_images, probs):
-            name = self.store.names[i]
+        def export(j, adapted, query_images, probs):
+            name = self.store.names[indices[j]]
             if save_dir is not None:
                 ckpt_lib.save_fine_tuned_checkpoint(
                     os.path.join(save_dir, name), adapted,
@@ -249,9 +302,21 @@ class GeckoEvaluator:
                     query_images.cpu().numpy(),
                     (probs > 0.5).float().cpu().numpy(), task_name=name)
 
-        ious = self.evaluate_tasks(
-            state, indices, generator, lr, drop_rate, aug_rate,
-            on_episode=export if save_dir is not None or overlays else None)
+        exporting = (save_dir is not None or overlays) and \
+            mesh_lib.is_writer()
+        seed = episodes.draw_seed(generator)
+        drop = self._drop_rate(drop_rate)
+        args = (self._images, self._masks, self._counts, indices)
+        ious = self._eval_chunk(state, *args, seed, lr, drop, aug_rate,
+                                export if exporting else None)
+        if exporting and self.mesh is not None:
+            own = mesh_lib.share(len(indices), self.mesh)
+            for j in range(len(indices)):
+                if j not in own:   # scored on another rank: replay it
+                    adapted, query_images, _, probs = \
+                        self._eval_chunk.episode(state, *args, j, seed, lr,
+                                                 drop, aug_rate)
+                    export(j, adapted, query_images, probs)
         task_iou_map = {self.store.names[i]: float(iou)
                         for i, iou in zip(indices, ious)}
         return nanmean(ious), task_iou_map

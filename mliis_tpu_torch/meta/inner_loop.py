@@ -20,6 +20,16 @@ version on the CPU), for the in-loop and the precomputed path alike; the
 JAX package resolves its `pallas_augment=None` per path and hands the
 precompute path the unresolved value. `pallas_augment=False` takes the
 plain version on any device.
+
+With a `DataShardSpec` every step's batch splits over a mesh data axis
+(the JAX package's DataShardSpec): a rank takes its contiguous slice of
+the step's batch indices and of the whole batch's augmentation draws,
+the loss sums across the axis, the model's batch norms sync their
+moments (it must be built with `bn_axis_name` = the axis) and the
+gradients are averaged over the axis. Dropout and drop-connect draw each
+shard's own stream (`episodes.shard_generator`), as the JAX package folds
+each shard's dropout key; everything else equals the unsharded step up
+to the order of the sums.
 """
 import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
@@ -28,6 +38,7 @@ import torch
 
 from mliis_tpu_torch.meta import episodes
 from mliis_tpu_torch.ops import losses as losses_lib
+from mliis_tpu_torch.parallel import mesh as mesh_lib
 
 Tree = Dict[str, torch.Tensor]
 
@@ -51,6 +62,14 @@ class OptimizerConfig:
     name: str = "sgd"           # "sgd" | "adam" (beta1=0)
     beta2: float = 0.999
     epsilon: float = 1e-8
+
+
+@dataclasses.dataclass(frozen=True)
+class DataShardSpec:
+    """Split each inner-loop batch over the mesh axis `axis_name` of
+    `num_shards` ranks; the inner batch size must be a multiple of it."""
+    axis_name: str
+    num_shards: int
 
 
 class OptState(NamedTuple):
@@ -118,9 +137,18 @@ def apply_optimizer_(params, grads, opt_state: OptState, lr: float,
         return OptState(step, dict(zip(names, new_v)))
 
 
-def make_loss_and_grad(model: torch.nn.Module, loss_config: LossConfig):
+def make_loss_and_grad(model: torch.nn.Module, loss_config: LossConfig,
+                       data_axis_name: Optional[str] = None):
     """(images, masks, generator, drop_rate) -> (loss, grads) at the
-    module's current params; the forward updates the running stats."""
+    module's current params; the forward updates the running stats.
+
+    With `data_axis_name` the batch is one shard of a batch split over that
+    bound axis: the loss is the whole batch's (axis sums inside it) and
+    the gradients are averaged over the axis. The average, not the sum, is
+    exact: the axis sum's backward hands every shard the summed cotangent,
+    so a shard's data gradient comes out at num_shards times its share,
+    while the replicated l2/l1 terms come out at their true scale on every
+    shard; the average rescales the first and keeps the second."""
     params = dict(model.named_parameters())
 
     def loss_and_grad(images, masks, generator, drop_rate):
@@ -132,18 +160,22 @@ def make_loss_and_grad(model: torch.nn.Module, loss_config: LossConfig):
             label_smoothing=loss_config.label_smoothing,
             dice=loss_config.dice,
             binary_iou_loss=loss_config.binary_iou_loss, l2=loss_config.l2,
-            l1=loss_config.l1, darc1=loss_config.darc1)
+            l1=loss_config.l1, darc1=loss_config.darc1,
+            data_axis_name=data_axis_name)
         grads = torch.autograd.grad(loss, list(params.values()))
+        if data_axis_name is not None:
+            grads = mesh_lib.pmean_grads(grads, data_axis_name)
         return loss.detach(), grads
 
     return loss_and_grad
 
 
 def sgd_step(model: torch.nn.Module, loss_config: LossConfig,
-             opt_config: OptimizerConfig, weight_decay_rate: float = 1.0):
+             opt_config: OptimizerConfig, weight_decay_rate: float = 1.0,
+             data_axis_name: Optional[str] = None):
     """One inner step on the module: (opt, images, masks, generator, lr,
     drop_rate) -> (opt, loss)."""
-    loss_and_grad = make_loss_and_grad(model, loss_config)
+    loss_and_grad = make_loss_and_grad(model, loss_config, data_axis_name)
     params = list(model.parameters())
 
     def step(opt: OptState, images, masks, generator, lr, drop_rate):
@@ -160,7 +192,8 @@ def make_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
                   opt_config: OptimizerConfig,
                   weight_decay_rate: float = 1.0, augment: bool = True,
                   precompute_augment: bool = False,
-                  pallas_augment: Optional[bool] = None) -> Callable:
+                  pallas_augment: Optional[bool] = None,
+                  data_shard: Optional[DataShardSpec] = None) -> Callable:
     """Builds adapt(state, support_images_u8, support_masks_u8, idx_matrix,
     generator, lrs, drop_rate=None, aug_rate=None) -> (adapted ModelState,
     per-step losses [steps]).
@@ -170,8 +203,12 @@ def make_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
     before the loop and stages it in bf16 (the JAX package's memory-bound
     variant); the default augments inside each step. pallas_augment None
     or True augments through the kernels' wrappers, False through their
-    plain versions."""
-    step_fn = sgd_step(model, loss_config, opt_config, weight_decay_rate)
+    plain versions. `data_shard` splits every step's batch over a bound
+    mesh data axis (not with precompute_augment)."""
+    if data_shard is not None and precompute_augment:
+        raise ValueError("data_shard + precompute_augment is not supported")
+    step_fn = sgd_step(model, loss_config, opt_config, weight_decay_rate,
+                       data_shard.axis_name if data_shard else None)
 
     def adapt(state: ModelState, support_images_u8, support_masks_u8,
               idx_matrix, generator, lrs, drop_rate=None, aug_rate=None
@@ -179,12 +216,20 @@ def make_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
         load_state(model, state)
         opt = state.opt
         lr_list = [float(v) for v in torch.as_tensor(lrs, dtype=torch.float32)]
+        offset, total, model_generator = 0, None, generator
+        if data_shard is not None:
+            total = idx_matrix.shape[1]
+            local = total // data_shard.num_shards
+            offset = mesh_lib.axis_index(data_shard.axis_name) * local
+            idx_matrix = idx_matrix[:, offset:offset + local]
+            model_generator = episodes.shard_generator(generator, offset)
 
         def batch(i):
             return episodes.assemble_batch(
                 support_images_u8, support_masks_u8, idx_matrix[i],
                 generator, aug_rate=aug_rate, augment=augment,
-                kernels=pallas_augment is not False)
+                kernels=pallas_augment is not False, key_offset=offset,
+                key_total=total)
 
         staged = None
         if precompute_augment and augment:
@@ -196,7 +241,8 @@ def make_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
                 images, masks = batch(i)
             else:
                 images, masks = (t.float() for t in staged[i])
-            opt, loss = step_fn(opt, images, masks, generator, lr, drop_rate)
+            opt, loss = step_fn(opt, images, masks, model_generator, lr,
+                                drop_rate)
             losses.append(loss)
         if not losses:   # zero steps: a FOMAML* task of one inner step
             return snapshot(model, opt), torch.zeros(0)

@@ -14,17 +14,21 @@ Reference semantics (the JAX package's `meta/learners.py`):
 The draws of a meta-step (task ids; per task the shots, the train/tail
 split and the batch index matrix) are made by `draw_meta_step` and passed
 to the step, so a test can inject the indices the JAX key discipline
-yields. The random numbers inside a step (augmentation, dropout,
-drop-connect) come from the generator passed to it.
+yields. The streams are slot-indexed: slot s draws its task id, its
+indices and, inside the step, its augmentation, dropout and drop-connect
+from its own generator (`MetaStepDraws.generators`), seeded from the
+meta-step's seed and s, so any subset of the slots can run anywhere
+(`parallel/mesh.make_sharded_train_step`) and draw what it draws here.
 """
 import dataclasses
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from mliis_tpu_torch.meta import episodes
-from mliis_tpu_torch.meta.inner_loop import (LossConfig, ModelState,
-                                             OptimizerConfig, make_adapt_fn,
+from mliis_tpu_torch.meta.inner_loop import (DataShardSpec, LossConfig,
+                                             ModelState, OptimizerConfig,
+                                             Tree, make_adapt_fn,
                                              make_lr_array)
 from mliis_tpu_torch.ops import meta_math
 
@@ -61,8 +65,11 @@ class TaskDraws(NamedTuple):
 
 
 class MetaStepDraws(NamedTuple):
+    """Every slot's task id, draws and generator (which the step goes on
+    drawing from)."""
     task_ids: torch.Tensor
     tasks: List[TaskDraws]
+    generators: List[torch.Generator]
 
 
 def draw_task(generator: torch.Generator, count: torch.Tensor,
@@ -91,29 +98,41 @@ def draw_task(generator: torch.Generator, count: torch.Tensor,
     return TaskDraws(shot_idx, train_rel, tail_rel, idx)
 
 
-def draw_meta_step(generator: torch.Generator, counts: torch.Tensor,
+def draw_meta_step(seed: int, counts: torch.Tensor,
                    config: MetaTrainConfig, n_max: int) -> MetaStepDraws:
-    """Task ids (uniform with replacement) and every task's draws."""
-    task_ids = episodes.sample_task_ids(generator, counts.shape[0],
-                                        config.meta_batch_size,
-                                        counts.device)
-    tasks = [draw_task(generator,
-                       torch.index_select(counts, 0, task_ids[i:i + 1])[0],
+    """Per slot, from the slot's own generator (`episodes.slot_generator`
+    of `seed` and the slot): its task id (uniform with replacement) and
+    its task's draws."""
+    dev = counts.device
+    generators = [episodes.slot_generator(seed, s, dev)
+                  for s in range(config.meta_batch_size)]
+    task_ids = torch.cat([episodes.sample_task_ids(g, counts.shape[0], 1,
+                                                   dev)
+                          for g in generators])
+    tasks = [draw_task(g, torch.index_select(counts, 0,
+                                             task_ids[i:i + 1])[0],
                        config, n_max)
-             for i in range(config.meta_batch_size)]
-    return MetaStepDraws(task_ids, tasks)
+             for i, g in enumerate(generators)]
+    return MetaStepDraws(task_ids, tasks, generators)
 
 
 def make_per_task_fn(model, loss_config: LossConfig,
-                     opt_config: OptimizerConfig, config: MetaTrainConfig):
+                     opt_config: OptimizerConfig, config: MetaTrainConfig,
+                     data_shard: Optional[DataShardSpec] = None):
     """per_task(state, task_images_u8, task_masks_u8, draws, generator, lr)
     -> (update, final ModelState): `update` is the FOMAML last-step
-    displacement or, for Reptile, the adapted params."""
+    displacement or, for Reptile, the adapted params.
+
+    `data_shard` splits every augmented inner batch over a bound mesh data
+    axis (`inner_loop.DataShardSpec`). The FOMAML* tail step is not split:
+    its tail batch need not divide the axis, so every shard runs the whole
+    raw tail batch alike, as in the JAX package."""
     adapt = make_adapt_fn(model, loss_config, opt_config,
                           weight_decay_rate=config.weight_decay_rate,
                           augment=config.augment,
                           precompute_augment=config.precompute_augment,
-                          pallas_augment=config.pallas_augment)
+                          pallas_augment=config.pallas_augment,
+                          data_shard=data_shard)
 
     def lr_array(lr):
         return make_lr_array(lr, config.inner_iters, config.lr_scheduler,
@@ -174,40 +193,58 @@ def apply_outer_update(state: ModelState, mean_update, meta_step_size,
                                       meta_step_size)
 
 
+def sum_over_slots(per_task, state: ModelState, store_images,
+                   store_masks, draws: MetaStepDraws, slots: Sequence[int],
+                   lr) -> Tuple[Tree, Tree, Tree]:
+    """Sums of the updates, the final batch stats and the final optimizer
+    slots of the tasks in `slots`, run one after another, each from
+    `state` with its slot's draws and generator."""
+    sum_u = meta_math.tree_zeros_like(state.params)
+    sum_bn = meta_math.tree_zeros_like(state.batch_stats)
+    sum_v = meta_math.tree_zeros_like(state.opt.v)
+    for i in slots:
+        tid = draws.task_ids[i:i + 1]
+        update, final = per_task(
+            state, torch.index_select(store_images, 0, tid)[0],
+            torch.index_select(store_masks, 0, tid)[0], draws.tasks[i],
+            draws.generators[i], lr)
+        sum_u = meta_math.tree_add(sum_u, update)
+        sum_bn = meta_math.tree_add(sum_bn, final.batch_stats)
+        sum_v = meta_math.tree_add(sum_v, final.opt.v)
+    return sum_u, sum_bn, sum_v
+
+
+def finish_meta_step(state: ModelState, sums: Tuple[Tree, Tree, Tree],
+                     config: MetaTrainConfig, meta_step_size) -> ModelState:
+    """The outer update from the meta-batch's sums: the means over its
+    `meta_batch_size` tasks of the updates, batch stats and optimizer
+    slots. Every task takes `inner_iters` optimizer steps from `state`."""
+    sum_u, sum_bn, sum_v = sums
+    inv_m = 1.0 / config.meta_batch_size
+    new_params = apply_outer_update(state,
+                                    meta_math.tree_scale(sum_u, inv_m),
+                                    meta_step_size, config.foml)
+    new_opt = state.opt._replace(v=meta_math.tree_scale(sum_v, inv_m),
+                                 step=state.opt.step + config.inner_iters)
+    return ModelState(new_params, meta_math.tree_scale(sum_bn, inv_m),
+                      new_opt)
+
+
 def make_chained_train_step(model, loss_config: LossConfig,
                             opt_config: OptimizerConfig,
                             config: MetaTrainConfig):
-    """train_step(state, store_images, store_masks, draws, generator,
-    meta_step_size, lr) -> new ModelState, the meta-batch's tasks run one
-    after another; `draws` from `draw_meta_step`."""
+    """train_step(state, store_images, store_masks, draws, meta_step_size,
+    lr) -> new ModelState, the meta-batch's tasks run one after another;
+    `draws` from `draw_meta_step`."""
     per_task = make_per_task_fn(model, loss_config, opt_config, config)
-    m = config.meta_batch_size
+    slots = range(config.meta_batch_size)
 
     def train_step(state: ModelState, store_images, store_masks,
-                   draws: MetaStepDraws, generator, meta_step_size, lr
-                   ) -> ModelState:
-        sum_u = meta_math.tree_zeros_like(state.params)
-        sum_bn = meta_math.tree_zeros_like(state.batch_stats)
-        sum_v = meta_math.tree_zeros_like(state.opt.v)
-        last_step = state.opt.step
-        for i, task in enumerate(draws.tasks):
-            tid = draws.task_ids[i:i + 1]
-            update, final = per_task(
-                state, torch.index_select(store_images, 0, tid)[0],
-                torch.index_select(store_masks, 0, tid)[0], task, generator,
-                lr)
-            sum_u = meta_math.tree_add(sum_u, update)
-            sum_bn = meta_math.tree_add(sum_bn, final.batch_stats)
-            sum_v = meta_math.tree_add(sum_v, final.opt.v)
-            last_step = final.opt.step
-        inv_m = 1.0 / m
-        new_params = apply_outer_update(state,
-                                        meta_math.tree_scale(sum_u, inv_m),
-                                        meta_step_size, config.foml)
-        new_opt = state.opt._replace(v=meta_math.tree_scale(sum_v, inv_m),
-                                     step=last_step)
-        return ModelState(new_params, meta_math.tree_scale(sum_bn, inv_m),
-                          new_opt)
+                   draws: MetaStepDraws, meta_step_size, lr) -> ModelState:
+        return finish_meta_step(
+            state, sum_over_slots(per_task, state, store_images, store_masks,
+                                  draws, slots, lr),
+            config, meta_step_size)
 
     return train_step
 

@@ -11,10 +11,16 @@ appended to `phase_timings.jsonl`.
 
 The JAX package's step strategies (vmapped, task groups, chained) make
 the same draws and do the same outer math; the port always chains its
-tasks. Its mesh strategies (`mesh_tasks`, `mesh_data`) are not ported and
-raise. The draws of a meta-step come from `draw_fn(generator, counts,
+tasks. With `mesh_tasks` the meta-batch shards over a task mesh of that
+many ranks (`parallel/mesh.make_sharded_train_step`); with `mesh_data`
+> 1 as well, over a (mesh_tasks, mesh_data) mesh whose training model is
+a sync-BN copy of `model`, while the interval evaluators keep `model` and
+shard their tasks over a task mesh of all the ranks. Every rank runs this
+loop; rank 0 alone writes the metrics, checkpoints and phase timings and
+logs. The draws of a meta-step come from `draw_fn(seed, counts,
 meta_config, n_max)`, `learners.draw_meta_step` unless a caller (a test
-injecting the JAX key discipline's indices) passes another.
+injecting the JAX key discipline's indices) passes another; the seed is
+drawn from `generator`, the same on every rank.
 """
 import dataclasses
 import os
@@ -26,12 +32,14 @@ import torch
 
 from mliis_tpu_torch.data.task_store import TaskStore
 from mliis_tpu_torch.device import resolve_device
+from mliis_tpu_torch.meta import episodes
 from mliis_tpu_torch.meta.evaluate import EvalConfig, GeckoEvaluator
 from mliis_tpu_torch.meta.inner_loop import (LossConfig, ModelState,
                                              OptimizerConfig)
 from mliis_tpu_torch.meta.learners import (MetaTrainConfig, draw_meta_step,
                                            make_chained_train_step,
                                            meta_step_size_schedule)
+from mliis_tpu_torch.parallel import mesh as mesh_lib
 from mliis_tpu_torch.utils import checkpoint as ckpt_lib
 from mliis_tpu_torch.utils.logging import (MetricsWriter,
                                            log_estimated_time_remaining)
@@ -55,8 +63,11 @@ class TrainLoopConfig:
     lr: float = 5e-4
     transductive: bool = False
     aug_rate: Optional[float] = None
-    # Task-sharded (and task x data) meta-training: not ported.
+    # When > 0, shard the meta-batch (and the evaluators' tasks) over a
+    # task mesh of this many ranks (parallel/mesh.py).
     mesh_tasks: int = 0
+    # When > 1 (with mesh_tasks), meta-train on a (mesh_tasks, mesh_data)
+    # mesh: every inner batch also splits over the data axis, with sync-BN.
     mesh_data: int = 0
 
 
@@ -68,17 +79,35 @@ def train_gecko(model: torch.nn.Module, state: ModelState,
                 log_fn: Callable = print, device=None,
                 draw_fn: Callable = draw_meta_step) -> ModelState:
     """Run meta-training on `device` (the card unless the caller asks for
-    the CPU; `generator` lies there too); returns the final ModelState."""
+    the CPU; with a mesh, this rank's card; `generator` lies there too);
+    returns the final ModelState."""
     cfg = loop_config
-    if cfg.mesh_tasks or cfg.mesh_data:
-        raise NotImplementedError(
-            "mesh_tasks / mesh_data: task- and data-sharded meta-training "
-            "is not ported (ROADMAP.md, queue A, item 6)")
-    dev = resolve_device(device)
+    if cfg.mesh_data and cfg.mesh_data > 1 and not cfg.mesh_tasks:
+        raise ValueError(
+            "mesh_data > 1 requires mesh_tasks (the 2D mesh is "
+            "mesh_tasks x mesh_data; use mesh_tasks=1 for pure data "
+            "parallelism) -- refusing to silently train unsharded")
     os.makedirs(save_dir, exist_ok=True)
+    mesh = None
+    if cfg.mesh_tasks:
+        n_data = max(cfg.mesh_data, 1)
+        dev = mesh_lib.init_world(cfg.mesh_tasks * n_data, device, save_dir)
+        mesh = mesh_lib.make_task_mesh(cfg.mesh_tasks * n_data, dev)
+        train_mesh, train_model = mesh, model.to(dev)
+        if n_data > 1:
+            train_mesh = mesh_lib.make_task_data_mesh(cfg.mesh_tasks, n_data,
+                                                      dev)
+            train_model = mesh_lib.sync_bn_copy(model)
+        train_step = mesh_lib.make_sharded_train_step(
+            train_model, loss_config, opt_config, meta_config, train_mesh)
+        state = mesh_lib.replicate_to_mesh(state, train_mesh)
+    else:
+        dev = resolve_device(device)
+        train_step = make_chained_train_step(model, loss_config, opt_config,
+                                             meta_config)
     model.to(dev)
-    train_step = make_chained_train_step(model, loss_config, opt_config,
-                                         meta_config)
+    writes = mesh_lib.is_writer()
+    log_fn = mesh_lib.writer_log(log_fn)
     # The interval evaluators inherit the training run's protocol, so the
     # IoUs that pick the best-seen checkpoint follow the configured one.
     eval_cfg = EvalConfig(
@@ -96,11 +125,11 @@ def train_gecko(model: torch.nn.Module, state: ModelState,
         weight_decay_rate=meta_config.weight_decay_rate)
     evaluators = {
         "train": GeckoEvaluator(model, loss_config, opt_config, eval_cfg,
-                                train_store, device=dev),
+                                train_store, device=dev, mesh=mesh),
         "test": GeckoEvaluator(model, loss_config, opt_config, eval_cfg,
-                               test_store, device=dev),
+                               test_store, device=dev, mesh=mesh),
     }
-    writers = {split: MetricsWriter(save_dir, split)
+    writers = {split: MetricsWriter(save_dir, split) if writes else None
                for split in ("train", "test")}
     store_images, store_masks, store_counts = train_store.to_torch(dev)
     n_max = store_images.shape[1]
@@ -114,9 +143,10 @@ def train_gecko(model: torch.nn.Module, state: ModelState,
         cur_meta_step_size = meta_step_size_schedule(
             i, cfg.meta_iters, cfg.meta_step_size, cfg.meta_step_size_final)
         with timer.phase("meta_step"):
-            draws = draw_fn(generator, store_counts, meta_config, n_max)
+            draws = draw_fn(episodes.draw_seed(generator), store_counts,
+                            meta_config, n_max)
             state = train_step(state, store_images, store_masks, draws,
-                               generator, cur_meta_step_size, cfg.lr)
+                               cur_meta_step_size, cfg.lr)
 
         if i % cfg.eval_interval == 0:
             mean_ious = []
@@ -126,8 +156,10 @@ def train_gecko(model: torch.nn.Module, state: ModelState,
                         state, generator, lr=cfg.lr, eval_all_tasks=False,
                         num_tasks_to_sample=cfg.num_tasks_to_eval,
                         aug_rate=cfg.aug_rate)
-                writers[split].scalar("IoU", mean_iou, i)
-                writers[split].scalar("meta_step_size", cur_meta_step_size, i)
+                if writes:
+                    writers[split].scalar("IoU", mean_iou, i)
+                    writers[split].scalar("meta_step_size",
+                                          cur_meta_step_size, i)
                 mean_ious.append(mean_iou)
             log_fn("Train step %d: train=%f test=%f"
                    % (i, mean_ious[0], mean_ious[1]))
@@ -136,21 +168,28 @@ def train_gecko(model: torch.nn.Module, state: ModelState,
                 best_eval_iou = mean_ious[1]
                 log_fn("Highest test-set evaluation IoU seen at step {}: {}"
                        .format(i, best_eval_iou))
-                ckpt_lib.save_checkpoint(best_save_dir, state, i,
-                                         max_to_keep=1,
-                                         metadata={"best_iou": best_eval_iou})
+                if writes:
+                    ckpt_lib.save_checkpoint(
+                        best_save_dir, state, i, max_to_keep=1,
+                        metadata={"best_iou": best_eval_iou})
 
-        if (i % cfg.save_checkpoint_every_n_meta_iters == 0
-                or i == cfg.meta_iters - 1):
+        if writes and (i % cfg.save_checkpoint_every_n_meta_iters == 0
+                       or i == cfg.meta_iters - 1):
             ckpt_lib.save_checkpoint(save_dir, state, i,
                                      max_to_keep=cfg.max_checkpoints_to_keep)
-        if cfg.time_deadline is not None and time.time() > cfg.time_deadline:
-            log_fn("Time deadline reached at step {}".format(i))
-            break
+        if cfg.time_deadline is not None:
+            late = time.time() > cfg.time_deadline
+            if mesh is not None:   # every rank stops at the same step
+                late = mesh_lib.any_rank(late, dev)
+            if late:
+                log_fn("Time deadline reached at step {}".format(i))
+                break
         log_estimated_time_remaining(begin_time, i, cfg.meta_iters,
                                      log_fn=log_fn)
 
     for w in writers.values():
-        w.close()
-    timer.dump(os.path.join(save_dir, "phase_timings.jsonl"), log_fn=log_fn)
+        if w is not None:
+            w.close()
+    timer.dump(os.path.join(save_dir, "phase_timings.jsonl") if writes
+               else None, log_fn=log_fn)
     return state

@@ -10,8 +10,12 @@ The port of the JAX package's `meta/uho_eval.py`:
     aug_rate, inner_batch_size} with the above as its objective; writes the
     per-config CSV (with `_{shots}-shot` before its extension) and returns
     (best lr, median steps).
-Tasks run one after another on the evaluator's device; the draws come
-from the generator passed in.
+Tasks run one after another on the evaluator's device. An evaluation draws
+one seed from the generator passed in, and its task j draws from its own
+generator (`episodes.slot_generator`). With a mesh each task rank traces
+its share of the tasks and the (steps, IoU) pairs are all-reduced into
+place, so every rank walks the same GP search; rank 0 alone writes its
+CSV.
 """
 import os
 import random as pyrandom
@@ -22,26 +26,30 @@ import torch
 
 from mliis_tpu_torch.data.task_store import TaskStore
 from mliis_tpu_torch.device import resolve_device
-from mliis_tpu_torch.meta import uho
+from mliis_tpu_torch.meta import episodes, uho
 from mliis_tpu_torch.meta.early_stopping import (make_early_stopping_trace_fn,
                                                  walk_trace)
 from mliis_tpu_torch.meta.evaluate import (EvalConfig, GeckoEvaluator,
                                            draw_episode)
 from mliis_tpu_torch.meta.inner_loop import (LossConfig, ModelState,
                                              OptimizerConfig)
+from mliis_tpu_torch.parallel import mesh as mesh_lib
 
 
 class EarlyStoppingEvaluator:
     """Early-stopping evaluation over a TaskStore held on `device` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU); with a `mesh`, its tasks
+    shard over the task axis."""
 
     def __init__(self, model: torch.nn.Module, loss_config: LossConfig,
                  opt_config: OptimizerConfig, store: TaskStore,
                  num_shots: int = 5, test_shots: int = 5,
                  replacement: bool = False, augment: bool = True,
                  weight_decay_rate: float = 1.0, patience: int = 50,
-                 pallas_augment: Optional[bool] = None, device=None):
+                 pallas_augment: Optional[bool] = None, device=None,
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = model.to(self.device)
         self.loss_config = loss_config
         self.opt_config = opt_config
@@ -65,7 +73,7 @@ class EarlyStoppingEvaluator:
     def _trace_task(self, state: ModelState, index: int, generator,
                     max_steps: int, inner_batch_size: int, lr: float,
                     drop_rate: float, aug_rate) -> np.ndarray:
-        """One task's [max_steps] val mIoU trace."""
+        """One task's [max_steps] val mIoU trace, drawn from `generator`."""
         cfg = EvalConfig(num_shots=self.num_shots,
                          test_shots=self.test_shots,
                          inner_batch_size=inner_batch_size,
@@ -109,15 +117,25 @@ class EarlyStoppingEvaluator:
                 default = getattr(self.model, "final_layer_dropout_rate",
                                   None)
                 drop_rate = float(default) if default else 0.0
-            num_steps, ious = [], []
-            for i in indices:
-                trace = self._trace_task(state, i, generator, max_steps,
-                                         inner_batch_size, lr, drop_rate,
-                                         aug_rate)
-                steps, best = walk_trace(trace, patience=self.patience,
-                                         min_steps=min_steps)
-                num_steps.append(int(steps))
-                ious.append(float(best))
+            seed = episodes.draw_seed(generator)
+            n = len(indices)
+            walked = torch.zeros((2, n), dtype=torch.float64,
+                                 device=self.device)
+            positions = (range(n) if self.mesh is None
+                         else mesh_lib.share(n, self.mesh))
+            for j in positions:
+                trace = self._trace_task(
+                    state, indices[j],
+                    episodes.slot_generator(seed, j, self.device), max_steps,
+                    inner_batch_size, lr, drop_rate, aug_rate)
+                walked[:, j] = torch.tensor(walk_trace(
+                    trace, patience=self.patience, min_steps=min_steps),
+                    dtype=torch.float64)
+            if self.mesh is not None:
+                walked = mesh_lib.all_reduce_sum(
+                    [walked], self.mesh.get_group(mesh_lib.TASK_AXIS))[0]
+            num_steps = [int(v) for v in walked[0].tolist()]
+            ious = walked[1].tolist()
             estimated_best_num_steps = int(np.median(num_steps))
         else:
             estimated_best_num_steps = min_steps
@@ -137,7 +155,8 @@ class EarlyStoppingEvaluator:
             if evaluator is None:
                 evaluator = GeckoEvaluator(self.model, self.loss_config,
                                            self.opt_config, eval_cfg,
-                                           self.store, device=self.device)
+                                           self.store, device=self.device,
+                                           mesh=self.mesh)
                 self._gecko_cache[eval_cfg] = evaluator
             per_task = evaluator.evaluate_tasks(state, indices, generator, lr,
                                                 drop_rate, aug_rate)
@@ -183,6 +202,8 @@ def optimize_update_hyperparams(
     results_csv_name = "{}_{}-shot{}".format(before_ext, num_shots, ext)
     save_results_to = os.path.join(save_dir, results_csv_name) \
         if save_dir is not None else results_csv_name
+    if not mesh_lib.is_writer():
+        save_results_to = None
 
     params = {uho.LEARNING_RATE_NAME: None, uho.DROPOUT_RATE_NAME: None,
               uho.AUG_RATE_NAME: 0.5, uho.BATCH_SIZE_NAME: 8}

@@ -16,6 +16,9 @@ as well, so its eval-mode apply of a skip-decoding model raises unless the
 caller makes `batch_stats` mutable; the port computes what that mutable
 apply computes and keeps the buffers (ROADMAP.md section C). ASPP's
 dropout rate is a fixed 0.5 in training, apart from the final layer's.
+`bn_axis_name` names the mesh axis over which every batch norm, the
+skip decoder's and the RSD modules' included, averages its batch moments
+(sync-BN for the data-sharded paths, `parallel/mesh.py`).
 
 bf16 follows flax's `dtype=`: activations and kernels are cast to the
 compute dtype at each conv and batch norm, params stay float32, and the
@@ -59,13 +62,14 @@ class _ConvNlBn(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  dilation: int = 1,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
         self.conv = layers.Conv2d(in_features, features, kernel_size,
                                   dilation=dilation,
                                   compute_dtype=compute_dtype)
         self.batch_normalization = layers.FusedBatchNorm(
-            features, compute_dtype=compute_dtype)
+            features, compute_dtype=compute_dtype, axis_name=bn_axis_name)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         return self.batch_normalization(layers.swish(self.conv(x)), train)
@@ -77,20 +81,19 @@ class ResidualSkipDecoder(nn.Module):
 
     def __init__(self, in_features: int, skip_features: int,
                  num_output_filters: int, residual: bool = True,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
-        dt = compute_dtype
+        kw = dict(compute_dtype=compute_dtype, bn_axis_name=bn_axis_name)
         self.residual = residual
         decoded = in_features + skip_features
         if in_features != num_output_filters:
             self.upsample_proj = _ConvNlBn(in_features, num_output_filters,
-                                           1, compute_dtype=dt)
+                                           1, **kw)
         nd = num_output_filters
-        self.branch_0 = _ConvNlBn(decoded, nd, 1, compute_dtype=dt)
-        self.branch_1 = _ConvNlBn(decoded, nd, 3, dilation=2,
-                                  compute_dtype=dt)
-        self.fuse = _ConvNlBn(2 * nd + decoded, num_output_filters, 3,
-                              compute_dtype=dt)
+        self.branch_0 = _ConvNlBn(decoded, nd, 1, **kw)
+        self.branch_1 = _ConvNlBn(decoded, nd, 3, dilation=2, **kw)
+        self.fuse = _ConvNlBn(2 * nd + decoded, num_output_filters, 3, **kw)
 
     def forward(self, embedded: torch.Tensor, skip: torch.Tensor,
                 train: bool) -> torch.Tensor:
@@ -113,17 +116,18 @@ class _SepConv(nn.Module):
     DeepLab skip decoder's unit. Its convs have no compute dtype: on bf16
     input they run in the promoted float32, as flax's do."""
 
-    def __init__(self, in_features: int, features: int, kernel_size: int):
+    def __init__(self, in_features: int, features: int, kernel_size: int,
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
         self.depthwise_conv = layers.Conv2d(
             in_features, in_features, kernel_size, groups=in_features,
             use_bias=False, depthwise_init=True)
         self.batch_normalization = layers.FusedBatchNorm(
-            in_features, always_batch_stats=True)
+            in_features, always_batch_stats=True, axis_name=bn_axis_name)
         self.pointwise_conv = layers.Conv2d(in_features, features, 1,
                                             use_bias=False)
         self.batch_normalization_1 = layers.FusedBatchNorm(
-            features, always_batch_stats=True)
+            features, always_batch_stats=True, axis_name=bn_axis_name)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         x = layers.swish(self.batch_normalization(self.depthwise_conv(x),
@@ -172,8 +176,10 @@ class EfficientLab(nn.Module):
                  skip_decoding: bool = False,
                  disable_rsd_residual_connections: bool = False,
                  final_layer_dropout_rate: Optional[float] = 0.2,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
+        self.bn_axis_name = bn_axis_name
         self.n_output_channels = (n_classes + 1 if separate_background_channel
                                   else n_classes)
         self.final_layer_dropout_rate = final_layer_dropout_rate
@@ -182,7 +188,8 @@ class EfficientLab(nn.Module):
         aspp_dim, max_block_num = _BACKBONE_CONFIG[feature_extractor_name]
         self.backbone_name = feature_extractor_name.replace("-", "_")
         features = EfficientNetFeatures(feature_extractor_name, max_block_num,
-                                        compute_dtype=compute_dtype)
+                                        compute_dtype=compute_dtype,
+                                        bn_axis_name=bn_axis_name)
         self.add_module(self.backbone_name, features)
         channels = features.endpoint_channels()
         decoded = channels["reduction_4"]
@@ -194,11 +201,11 @@ class EfficientLab(nn.Module):
             self.decode_skip_proj = layers.Conv2d(
                 channels["reduction_2"], skip_dim, 1, use_bias=False)
             self.decode_skip_batch_normalization = layers.FusedBatchNorm(
-                skip_dim, always_batch_stats=True)
+                skip_dim, always_batch_stats=True, axis_name=bn_axis_name)
             self.sep_conv_0 = _SepConv(decoded + skip_dim,
-                                       aspp_dim + skip_dim, 3)
+                                       aspp_dim + skip_dim, 3, bn_axis_name)
             self.sep_conv_1 = _SepConv(aspp_dim + skip_dim,
-                                       aspp_dim + skip_dim, 3)
+                                       aspp_dim + skip_dim, 3, bn_axis_name)
             decoded = aspp_dim + skip_dim
         for i in self.rsd:
             self.add_module(
@@ -206,7 +213,7 @@ class EfficientLab(nn.Module):
                 ResidualSkipDecoder(
                     decoded, channels["reduction_{}".format(i)], aspp_dim,
                     residual=not disable_rsd_residual_connections,
-                    compute_dtype=compute_dtype))
+                    compute_dtype=compute_dtype, bn_axis_name=bn_axis_name))
             decoded = aspp_dim
         self.final_layer_weights = layers.Conv2d(
             decoded, self.n_output_channels, 1, compute_dtype=compute_dtype)

@@ -112,22 +112,24 @@ class MBConvBlock(nn.Module):
     """Mobile inverted residual bottleneck with squeeze-and-excitation."""
 
     def __init__(self, args: BlockArgs,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
         a = self.args = args
         dt = compute_dtype
+        ax = bn_axis_name
         filters = a.input_filters * a.expand_ratio
         if a.expand_ratio != 1:
             self.expand_conv = layers.Conv2d(a.input_filters, filters, 1,
                                              use_bias=False, compute_dtype=dt)
             self.batch_normalization = layers.FusedBatchNorm(
-                filters, compute_dtype=dt)
+                filters, compute_dtype=dt, axis_name=ax)
         self.depthwise_conv = layers.Conv2d(
             filters, filters, a.kernel_size, stride=a.strides[0],
             groups=filters, use_bias=False, depthwise_init=True,
             compute_dtype=dt)
-        self.batch_normalization_1 = layers.FusedBatchNorm(filters,
-                                                           compute_dtype=dt)
+        self.batch_normalization_1 = layers.FusedBatchNorm(
+            filters, compute_dtype=dt, axis_name=ax)
         self.has_se = a.se_ratio is not None and 0 < a.se_ratio <= 1
         if self.has_se:
             num_reduced = max(1, int(a.input_filters * a.se_ratio))
@@ -138,7 +140,7 @@ class MBConvBlock(nn.Module):
         self.project_conv = layers.Conv2d(filters, a.output_filters, 1,
                                           use_bias=False, compute_dtype=dt)
         self.batch_normalization_2 = layers.FusedBatchNorm(
-            a.output_filters, compute_dtype=dt)
+            a.output_filters, compute_dtype=dt, axis_name=ax)
 
     def forward(self, inputs: torch.Tensor, train: bool,
                 drop_connect_rate: float = 0.0,
@@ -170,7 +172,8 @@ class EfficientNetFeatures(nn.Module):
     def __init__(self, model_name: str = "efficientnet-b0",
                  max_block_num: Optional[int] = None,
                  drop_connect_rate: float = 0.2,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
         width, _, _, _ = EFFICIENTNET_PARAMS[model_name]
         self.blocks_args, self.divisor = expand_block_list(model_name,
@@ -180,10 +183,11 @@ class EfficientNetFeatures(nn.Module):
         self.stem_conv = layers.Conv2d(3, stem, 3, stride=2, use_bias=False,
                                        compute_dtype=compute_dtype)
         self.stem_batch_normalization = layers.FusedBatchNorm(
-            stem, compute_dtype=compute_dtype)
+            stem, compute_dtype=compute_dtype, axis_name=bn_axis_name)
         for idx, args in enumerate(self.blocks_args):
             self.add_module("blocks_{}".format(idx),
-                            MBConvBlock(args, compute_dtype=compute_dtype))
+                            MBConvBlock(args, compute_dtype=compute_dtype,
+                                        bn_axis_name=bn_axis_name))
 
     def _is_reduction(self, idx: int) -> bool:
         blocks = self.blocks_args

@@ -15,6 +15,11 @@ What differs from the obvious `nn.Conv2d` / `nn.BatchNorm2d`:
     `always_batch_stats` it normalizes by the batch's moments in both
     modes and updates the running stats only in training (the skip
     decoder's layers, whose reference passes a literal training=True).
+    With `axis_name` the batch moments E[x] and E[x^2] are averaged over
+    that mesh axis (sync-BN, the JAX package's `lax.pmean`), so every
+    shard of a split batch normalizes by, and keeps running stats of, the
+    whole batch's moments; the axis must be bound
+    (`parallel.mesh.bound`) when batch moments are taken.
 Parameter names keep the flax names (`kernel`, `bias`, `scale`; running
 stats `mean`, `var`) so checkpoints map one to one and the l2 term can skip
 batch norm by name.
@@ -25,6 +30,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from mliis_tpu_torch.parallel import mesh as mesh_lib
 
 
 def same_padding(size: int, kernel: int, stride: int = 1,
@@ -95,16 +102,19 @@ class FusedBatchNorm(nn.Module):
 
     `always_batch_stats=True` normalizes by the batch's moments whatever
     `train` says; `train` then only decides whether the running stats are
-    updated, so an eval-mode forward leaves the buffers as they were."""
+    updated, so an eval-mode forward leaves the buffers as they were.
+    `axis_name` averages the batch moments over that bound mesh axis."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-3,
                  compute_dtype: Optional[torch.dtype] = None,
-                 always_batch_stats: bool = False):
+                 always_batch_stats: bool = False,
+                 axis_name: Optional[str] = None):
         super().__init__()
         self.momentum, self.epsilon = momentum, epsilon
         self.compute_dtype = compute_dtype
         self.always_batch_stats = always_batch_stats
+        self.axis_name = axis_name
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -121,7 +131,11 @@ class FusedBatchNorm(nn.Module):
         if train or self.always_batch_stats:
             xf = x.float()
             mean = xf.mean((0, 2, 3))
-            var = xf.square().mean((0, 2, 3)) - mean.square()
+            mean2 = xf.square().mean((0, 2, 3))
+            if self.axis_name is not None:
+                mean, mean2 = mesh_lib.pmean(torch.stack([mean, mean2]),
+                                             self.axis_name)
+            var = mean2 - mean.square()
             if train:
                 m = self.momentum
                 with torch.no_grad():

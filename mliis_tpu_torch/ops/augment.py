@@ -47,7 +47,8 @@ def from_planar(x: torch.Tensor, c_img: int
 def augment_batch(generator: torch.Generator, images: torch.Tensor,
                   masks: torch.Tensor,
                   prob_to_return_original: Optional[float] = None,
-                  kernels: bool = True
+                  kernels: bool = True, key_offset: int = 0,
+                  key_total: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sample random augmentation of float NHWC (images, masks).
 
@@ -57,15 +58,28 @@ def augment_batch(generator: torch.Generator, images: torch.Tensor,
     PALLAS_FUSED_SINGLE_LAUNCH holds and H == W, else by the split route. A sample that passes through gets prefix length 0, so
     the kernels do no work for it (the JAX package computes it and discards
     it). `kernels=False` takes the kernels' plain versions on any device
-    (`--pallas_augment off`); the draws are the same."""
+    (`--pallas_augment off`); the draws are the same.
+
+    With `key_total`, the batch is the samples [key_offset, key_offset + B)
+    of a batch of key_total split over a mesh data axis: every per-sample
+    draw is made for the whole batch and the slice's rows are applied, so
+    the shard augments its samples as the whole batch would (each sample's
+    noise comes from its own Philox seed)."""
     if prob_to_return_original is None:
         prob_to_return_original = 1.0 / (NUM_OPS + 1)
     b, h, w, c_img = images.shape
     dev = images.device
+    total = b if key_total is None else key_total
+    rows = slice(key_offset, key_offset + b)
 
-    def randint(low, high, shape):
-        return torch.randint(low, high, shape, generator=generator,
-                             device=dev, dtype=torch.int32)
+    def randint(low, high, shape, dim=0):
+        """Draws of `shape`, whose `dim` is the batch's, made for the whole
+        batch; this slice's."""
+        full = list(shape)
+        full[dim] = total
+        return torch.randint(low, high, full, generator=generator,
+                             device=dev, dtype=torch.int32
+                             ).narrow(dim, key_offset, b)
 
     def rot_draws():
         return torch.stack([randint(-45, 45, (b,)),
@@ -73,10 +87,10 @@ def augment_batch(generator: torch.Generator, images: torch.Tensor,
                             randint(0, 2, (b,)),
                             randint(0, 256, (b,))], dim=1)
 
-    skip = torch.rand(b, generator=generator, device=dev) \
+    skip = torch.rand(total, generator=generator, device=dev)[rows] \
         <= prob_to_return_original
-    perm = torch.argsort(torch.rand(b, NUM_OPS, generator=generator,
-                                    device=dev), dim=1).to(torch.int32)
+    perm = torch.argsort(torch.rand(total, NUM_OPS, generator=generator,
+                                    device=dev)[rows], dim=1).to(torch.int32)
     perm = perm.contiguous()
     num = torch.where(skip, 0, randint(1, NUM_OPS + 1, (b,)))
     x = to_planar(images, masks)
@@ -91,7 +105,7 @@ def augment_batch(generator: torch.Generator, images: torch.Tensor,
         out = full_pass(seeds, x, perm, num, rot_draws(), c_img=c_img)
         return from_planar(out, c_img)
 
-    seeds = randint(0, 2 ** 31 - 1, (2, b))
+    seeds = randint(0, 2 ** 31 - 1, (2, b), dim=1)
     rot = rot_draws()
     border = randint(0, 256, (b, c_img, h, w)).float()
     rot_pos = torch.argmax((perm == ROTATE_OP).to(torch.int32), dim=1).to(

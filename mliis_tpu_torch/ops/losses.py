@@ -15,7 +15,13 @@ Numerics follow the JAX package's `ops/losses.py`:
   - darc1 = 5e-4 * max over logit positions of the batch sum of |logits|.
 Per-example `example_weights` mask padded batch slots out of every batch
 term: a zero-weight example contributes nothing and does not count in a
-mean.
+mean. With `data_axis_name` the batch is one shard of a batch split over
+that bound mesh axis, and every batch-level reduction (the CE mean, the
+dice term's mean IoU, darc1's batch sum) sums across the axis (the JAX
+package's `_axis_sum`), so each shard returns the whole batch's loss; an
+unweighted count is the local count times the axis size, the value the
+JAX package's psum of the constant gives. The l2/l1 terms of the
+replicated params stay local.
 """
 import re
 from typing import Dict, Optional
@@ -24,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from mliis_tpu_torch.ops.metrics import soft_iou_flat_per_example
+from mliis_tpu_torch.parallel import mesh as mesh_lib
 
 _BN_PATH_TOKENS = ("batch_normalization", "batchnorm", "bn")
 
@@ -34,20 +41,38 @@ def is_bn_name(name: str) -> bool:
                for tok in _BN_PATH_TOKENS)
 
 
+def _axis_sum(x: torch.Tensor, data_axis_name: Optional[str]
+              ) -> torch.Tensor:
+    """`x` summed over the mesh axis (itself when none is named)."""
+    return x if data_axis_name is None else mesh_lib.psum(x, data_axis_name)
+
+
+def _axis_count(n: int, data_axis_name: str) -> int:
+    """A local count times the axis size: the whole batch's count."""
+    return n * mesh_lib.axis_size(data_axis_name)
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           label_smoothing: float = 0.0,
-                          weights: Optional[torch.Tensor] = None
+                          weights: Optional[torch.Tensor] = None,
+                          data_axis_name: Optional[str] = None
                           ) -> torch.Tensor:
     """-sum(labels * log_softmax(logits)) over [M, C], smoothed labels,
-    averaged over the M examples (those with nonzero `weights` [M])."""
+    averaged over the M examples (those with nonzero `weights` [M]), over
+    the whole batch split along `data_axis_name` where one is named."""
     if label_smoothing:
         labels = (labels * (1.0 - label_smoothing)
                   + label_smoothing / logits.shape[-1])
     per_example = -(labels * F.log_softmax(logits, dim=-1)).sum(-1)
     if weights is None:
-        return per_example.mean()
-    num_nonzero = torch.clamp((weights != 0).sum(), min=1)
-    return (per_example * weights).sum() / num_nonzero
+        if data_axis_name is None:
+            return per_example.mean()
+        return (_axis_sum(per_example.sum(), data_axis_name)
+                / _axis_count(per_example.shape[0], data_axis_name))
+    num_nonzero = torch.clamp(
+        _axis_sum((weights != 0).sum().float(), data_axis_name), min=1)
+    return _axis_sum((per_example * weights).sum(),
+                     data_axis_name) / num_nonzero
 
 
 def soft_dice_adjustment(ce_loss: torch.Tensor,
@@ -73,14 +98,15 @@ def l1_term(params: Dict[str, torch.Tensor],
 
 
 def darc1_term(logits: torch.Tensor, weight: float = 0.0005,
-               example_weights: Optional[torch.Tensor] = None
-               ) -> torch.Tensor:
-    """weight * max_j sum_i |logits_ij|, i over the batch (first) dim;
+               example_weights: Optional[torch.Tensor] = None,
+               data_axis_name: Optional[str] = None) -> torch.Tensor:
+    """weight * max_j sum_i |logits_ij|, i over the batch (first) dim,
+    the batch sum taken across `data_axis_name` before the max;
     `example_weights` [N] mask padded examples out of the sum."""
     flat = logits.reshape(logits.shape[0], -1).abs()
     if example_weights is not None:
         flat = flat * example_weights[:, None]
-    return weight * flat.sum(0).max()
+    return weight * _axis_sum(flat.sum(0), data_axis_name).max()
 
 
 def segmentation_loss(logits: torch.Tensor, probabilities: torch.Tensor,
@@ -89,16 +115,20 @@ def segmentation_loss(logits: torch.Tensor, probabilities: torch.Tensor,
                       label_smoothing: float = 0.0, dice: bool = True,
                       binary_iou_loss: bool = True, l2: bool = True,
                       l1: bool = False, darc1: bool = False,
-                      example_weights: Optional[torch.Tensor] = None
+                      example_weights: Optional[torch.Tensor] = None,
+                      data_axis_name: Optional[str] = None
                       ) -> torch.Tensor:
     """logits, probabilities, labels: [N, H, W, C] (C = 2, [bg, fg]);
-    example_weights: optional [N] mask for padded batch slots."""
+    example_weights: optional [N] mask for padded batch slots;
+    data_axis_name: set when N is this shard's part of a batch split over
+    that mesh axis (the loss is then the whole batch's)."""
     n, h, w, c = logits.shape
     pixel_weights = None
     if example_weights is not None:
         pixel_weights = torch.repeat_interleave(example_weights, h * w)
     loss = softmax_cross_entropy(logits.reshape(-1, c), labels.reshape(-1, c),
-                                 label_smoothing, pixel_weights)
+                                 label_smoothing, pixel_weights,
+                                 data_axis_name)
     if dice:
         if binary_iou_loss:
             true_flat = labels[..., 1].reshape(n, -1)
@@ -107,14 +137,20 @@ def segmentation_loss(logits: torch.Tensor, probabilities: torch.Tensor,
             true_flat = labels.reshape(n, -1)
             pred_flat = probabilities.reshape(n, -1)
         per_image_iou = soft_iou_flat_per_example(true_flat, pred_flat)
-        if example_weights is None:
+        if example_weights is None and data_axis_name is None:
             iou = per_image_iou.mean()
+        elif example_weights is None:
+            iou = (_axis_sum(per_image_iou.sum(), data_axis_name)
+                   / _axis_count(n, data_axis_name))
         else:
-            iou = ((per_image_iou * example_weights).sum()
-                   / torch.clamp(example_weights.sum(), min=1))
+            iou = (_axis_sum((per_image_iou * example_weights).sum(),
+                             data_axis_name)
+                   / torch.clamp(_axis_sum(example_weights.sum(),
+                                           data_axis_name), min=1))
         loss = soft_dice_adjustment(loss, iou)
     if darc1:
-        loss = loss + darc1_term(logits, example_weights=example_weights)
+        loss = loss + darc1_term(logits, example_weights=example_weights,
+                                 data_axis_name=data_axis_name)
     if params is not None:
         if l2:
             loss = loss + l2_term(params)

@@ -155,8 +155,6 @@ def test_parameter_count_with_decoders_matches_jax():
 
 
 UNPORTED = [
-    ("--mesh_tasks 2", "item 6"),
-    ("--mesh_data 2", "item 6"),
     ("--rng_impl rbg", "Philox"),
 ]
 

@@ -140,7 +140,7 @@ def test_chained_meta_step_matches(models, no_jax_drop_connect):
         tmodel, til.LossConfig(), til.OptimizerConfig("sgd"),
         tlr.MetaTrainConfig(**kw))(
         tstate, torch.from_numpy(store.images),
-        torch.from_numpy(store.masks), draws, None, 0.5, 5e-4)
+        torch.from_numpy(store.masks), draws, 0.5, 5e-4)
 
     def flat(tree, prefix):
         return {prefix + "/".join(str(getattr(e, "key", e)) for e in path): v

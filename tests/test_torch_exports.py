@@ -45,7 +45,8 @@ CLI = ("--synthetic --synthetic_tasks 2 --image_size 32 --rsd 2 --sgd "
        "--meta-iters 1 --meta-batch 1 --eval-interval 2 --eval-samples 1 "
        "--eval-batch 4 --eval-iters 1 --transductive "
        "--spatial_pyramid_pooling --skip_decoding "
-       "--save_fine_tuned_checkpoints --save_fine_tuned_checkpoints_train")
+       "--save_fine_tuned_checkpoints --save_fine_tuned_checkpoints_train "
+       "--seed 1")
 
 
 @pytest.fixture(scope="module")

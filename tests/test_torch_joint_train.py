@@ -149,8 +149,7 @@ def test_cli_runs_and_checkpoints(tmp_path, capsys):
     """The port's CLI, as tests/test_joint_kshot.py runs the JAX one
     (EfficientLab-b0, --test_on_val_set, 8 synthetic tasks at 16^2, plain
     augmentation), then once with the default route: it prints "Val IoU",
-    writes a checkpoint in flax layout that restores into its state, and
-    --mesh_data raises."""
+    writes a checkpoint in flax layout that restores into its state."""
     common = ["--synthetic", "--synthetic_tasks", "8", "--image_size", "16",
               "--rsd", "2", "--sgd", "--loss_name", "ce", "--batch_size",
               "4", "--epochs", "1", "--steps_per_epoch", "2",
@@ -170,8 +169,6 @@ def test_cli_runs_and_checkpoints(tmp_path, capsys):
     restored, _ = tckpt.restore_checkpoint(str(tmp_path / "b"), state)
     for k, v in state.params.items():
         assert torch.equal(restored.params[k], v), k
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(common + ["--mesh_data", "2"], device="cpu")
 
 
 def test_chunked_head_matches_whole(monkeypatch):

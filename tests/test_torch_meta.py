@@ -113,7 +113,8 @@ def test_precomputed_augmentation_matches_in_loop(tiny, rng):
 
 def _jax_draws(key, counts, cfg, n_max, num_tasks):
     """The index draws of jlr.make_chained_train_step for `key`
-    (learners.py:110-155 for Reptile, FOMAML and FOMAML*)."""
+    (learners.py:110-155 for Reptile, FOMAML and FOMAML*), each slot with
+    a generator of its own for what it draws inside the step."""
     k_tasks, k_inner = jax.random.split(key)
     task_ids = jep.slot_task_ids(k_tasks, num_tasks, cfg.meta_batch_size)
     task_keys = jep.slot_keys(k_inner, cfg.meta_batch_size)
@@ -142,7 +143,8 @@ def _jax_draws(key, counts, cfg, n_max, num_tasks):
             None if a is None else torch.tensor(np.asarray(a)).long()
             for a in (shot, train_rel, tail_rel, idx))))
     return tlr.MetaStepDraws(torch.tensor(np.asarray(task_ids)).long(),
-                             tasks)
+                             tasks, [tep.slot_generator(0, s, "cpu")
+                                     for s in range(cfg.meta_batch_size)])
 
 
 @pytest.mark.parametrize("foml,tail_shots", [(True, 2), (True, None),
@@ -172,8 +174,7 @@ def test_chained_meta_step_matches_jax(tiny, foml, tail_shots):
     tstep = tlr.make_chained_train_step(tmodel, til.LossConfig(),
                                         til.OptimizerConfig("sgd"), tcfg)
     tout = tstep(tstate, torch.from_numpy(store.images),
-                 torch.from_numpy(store.masks), draws,
-                 torch.Generator().manual_seed(0), 0.5, 0.05)
+                 torch.from_numpy(store.masks), draws, 0.5, 0.05)
     _assert_state_close(tout, jout, atol=2e-5, rtol=1e-4)
 
 
@@ -185,7 +186,7 @@ def test_port_draws_have_the_reference_invariants():
     cfg = tlr.MetaTrainConfig(num_shots=6, inner_batch_size=4, inner_iters=7,
                               meta_batch_size=5, foml=True, tail_shots=2)
     counts = torch.tensor([8, 7, 8, 3], dtype=torch.int32)
-    d = tlr.draw_meta_step(gen, counts, cfg, n_max=8)
+    d = tlr.draw_meta_step(0, counts, cfg, n_max=8)
     assert d.task_ids.shape == (5,) and int(d.task_ids.max()) < 4
     for tid, t in zip(d.task_ids.tolist(), d.tasks):
         assert (t.shot_idx < counts[tid]).all()

@@ -1,5 +1,6 @@
 """tests/tiny_model.TinySeg in the port's layers, with the same parameter
-names, so one set of weights loads into both (`params_from_jax`)."""
+names, so one set of weights loads into both (`params_from_jax`), and the
+same sync-BN axis (`bn_axis_name`)."""
 import torch
 import torch.nn as nn
 
@@ -10,13 +11,16 @@ from mliis_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw
 class TorchTinySeg(nn.Module):
 
     def __init__(self, n_output_channels: int = 2, features: int = 8,
-                 final_layer_dropout_rate=0.0):
+                 final_layer_dropout_rate=0.0, bn_axis_name=None):
         super().__init__()
         self.final_layer_dropout_rate = final_layer_dropout_rate
+        self.bn_axis_name = bn_axis_name
         self.conv0 = layers.Conv2d(3, features, 3, stride=2, use_bias=False)
-        self.batch_normalization = layers.FusedBatchNorm(features)
+        self.batch_normalization = layers.FusedBatchNorm(
+            features, axis_name=bn_axis_name)
         self.conv1 = layers.Conv2d(features, features, 3, use_bias=False)
-        self.batch_normalization_1 = layers.FusedBatchNorm(features)
+        self.batch_normalization_1 = layers.FusedBatchNorm(
+            features, axis_name=bn_axis_name)
         self.final_layer_weights = layers.Conv2d(features, n_output_channels,
                                                  1)
 

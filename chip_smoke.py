@@ -127,6 +127,26 @@ its phases, one line each (or a few):
      either CLI, 290 a rank on the 1x2 step, 1 `fused_light_augment` a
      rank a step. Prints each run's seconds (a meta-step, a joint step),
      each rank's peak memory and the gaps.
+  12. spatial: the image H axis split over ranks
+     (mliis_tpu_torch/parallel/spatial.py) at full width: EfficientLab-b0
+     rsd=(2, 4) in float32 (dropout 0.5, drop-connect 0.2), 8 synthetic
+     images at 1024^2, weights from seed 0. A world of 1 (no mesh): the
+     eval forward, one loss-and-grad SGD step (bce_dice + l2, lr 5e-4),
+     and the eval forward of the same model with ASPP and skip decoding
+     (and once more on the batch reversed, to show how far the order of
+     float32 sums alone moves the skip decoder's batch moments). Each
+     run is timed after an untimed warm-up run.
+     A world of 2 on the one card over gloo (`python -m
+     torch.distributed.run --standalone --nproc_per_node 2 chip_smoke.py
+     --spatial-rank DIR`): the same three runs on H shards
+     (`make_spatial_forward`; `make_loss_and_grad` under `spatial.bound`),
+     the probabilities gathered. Held: probabilities within
+     SPATIAL_PROB_BAR abs; the step's params and running stats within
+     SPATIAL_STATE_BAR of the step's largest change, its loss within
+     SPATIAL_STATE_BAR relative; no kernel launched. Prints each run's
+     wall, each rank's peak memory beside the unsharded peak, the
+     all-reduces of each run (count, bytes, host seconds inside them) and
+     the gaps.
 Then the `kernels` JSON line (each kernel's launches on the path it
 carries, and on every path; `ms`, `cold_ms` and `bound_share` at the main
 path's size, every size's beside them), the card's name and power limit
@@ -1585,15 +1605,15 @@ def mesh_rank(outdir):
     return 0
 
 
-def _launch_ranks(outdir, timeout):
+def _launch_ranks(outdir, timeout, entry="--mesh-rank"):
     """`python -m torch.distributed.run --standalone --nproc_per_node 2
-    chip_smoke.py --mesh-rank outdir`, its whole process group killed if it
+    chip_smoke.py <entry> outdir`, its whole process group killed if it
     outlives `timeout`; returns the exit code."""
     import signal
     proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", str(MESH_RANKS), os.path.abspath(__file__),
-         "--mesh-rank", outdir], start_new_session=True)
+         entry, outdir], start_new_session=True)
     try:
         return proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -1796,6 +1816,291 @@ def phase_mesh(dev):
     return counts
 
 
+# The `spatial` phase: the image H axis split over the ranks of a world of
+# 2 on the one card, at a resolution far above the 224^2 benchmark.
+SPATIAL_SIZE, SPATIAL_BATCH, SPATIAL_LR = 1024, 8, 5e-4
+# Bars: probabilities within 1e-4 abs; the step's state within 1e-4 of its
+# largest change (the skip decoder's float32 batch moments move by a few
+# 1e-5 with the order of the sums alone, PERF.md).
+SPATIAL_PROB_BAR, SPATIAL_STATE_BAR = 1e-4, 1e-4
+SPATIAL_RUNS = ("forward", "step", "decoders")
+
+
+def _spatial_model(dev, decoders):
+    """EfficientLab-b0 rsd=(2, 4) in float32 with run.sh's dropout 0.5 and
+    the default drop-connect 0.2 (with ASPP and skip decoding when
+    `decoders`), weights from seed 0."""
+    import torch
+    from mliis_tpu_torch.models.efficientlab import EfficientLab
+    model = EfficientLab(rsd=(2, 4), spatial_pyramid_pooling=decoders,
+                         skip_decoding=decoders, final_layer_dropout_rate=0.5)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model.to(dev)
+
+
+class _AllReduceCount:
+    """`torch.distributed.all_reduce` counted while the block runs: calls,
+    bytes and the host seconds spent inside them."""
+
+    def __init__(self):
+        self.calls, self.bytes, self.seconds = 0, 0, 0.0
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.inner = dist.all_reduce
+
+        def counted(tensor, *args, **kwargs):
+            self.calls += 1
+            self.bytes += tensor.numel() * tensor.element_size()
+            t0 = time.time()
+            try:
+                return self.inner(tensor, *args, **kwargs)
+            finally:
+                self.seconds += time.time() - t0
+
+        dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.all_reduce = self.inner
+
+
+def _spatial_runs(dev, mesh=None, runs=SPATIAL_RUNS):
+    """The phase's `runs`, whole (no mesh) or on this rank's rows of
+    `mesh`: the eval forward, one loss-and-grad SGD step and the decoders'
+    eval forward. Returns ({run: wall, peak, launches, all-reduces},
+    {"probs", "state", "decoders": tensors on the CPU, gathered})."""
+    import contextlib
+    import torch
+    from mliis_tpu_torch.data.synthetic import make_synthetic_store
+    from mliis_tpu_torch.meta import inner_loop as il
+    from mliis_tpu_torch.parallel import spatial
+    store = make_synthetic_store(num_tasks=1,
+                                 examples_per_task=SPATIAL_BATCH,
+                                 image_size=SPATIAL_SIZE, seed=0)
+    images = torch.as_tensor(store.images[0]).float().to(dev)
+    fg = torch.as_tensor(store.masks[0]).float().to(dev) / 255.0
+    masks = torch.stack([1.0 - fg, fg], -1)
+    height, width = images.shape[1:3]
+    if mesh is not None:
+        images = spatial.shard_spatial(images, mesh).contiguous()
+        masks = spatial.shard_spatial(masks, mesh).contiguous()
+    results, arrays = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.time()
+        with _AllReduceCount() as count:
+            out = fn()
+            torch.cuda.synchronize()
+        results[name] = {"wall": time.time() - t0,
+                         "peak": torch.cuda.max_memory_allocated(dev),
+                         "launches": read_launches(),
+                         "all_reduces": count.calls,
+                         "all_reduce_bytes": count.bytes,
+                         "all_reduce_s": count.seconds}
+        return out
+
+    def whole(probs):
+        if mesh is not None:
+            probs = spatial.gather_spatial(probs, mesh, height)
+        return probs.cpu()
+
+    def forward_of(model):
+        if mesh is not None:
+            return spatial.make_spatial_forward(model, mesh)
+
+        def forward(x):
+            with torch.no_grad():
+                return model(x, train=False)[1]
+        return forward
+
+    model = _spatial_model(dev, False)
+    forward = forward_of(model)
+    if "forward" in runs:
+        forward(images)  # warm-up: cuDNN's first calls pick algorithms
+        arrays["probs"] = whole(timed("forward", lambda: forward(images)))
+    sgd = il.OptimizerConfig("sgd")
+    start = il.init_model_state(model, sgd)
+    loss_and_grad = il.make_loss_and_grad(model, il.LossConfig())
+
+    def step(apply=True):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        bound = (spatial.bound(mesh, height, width) if mesh is not None
+                 else contextlib.nullcontext())
+        with bound:
+            loss, grads = loss_and_grad(images, masks, gen, None)
+        if not apply:
+            return None
+        return loss, il.apply_optimizer_(list(model.parameters()), grads,
+                                         start.opt, SPATIAL_LR, sgd)
+
+    if "step" in runs:
+        step(apply=False)  # warm-up, then the weights and stats put back
+        il.load_state(model, start)
+        loss, opt = timed("step", step)
+        results["step"]["loss"] = float(loss)
+        arrays["state"] = _cpu_state(il.snapshot(model, opt))
+    del model, forward, start, loss_and_grad
+    torch.cuda.empty_cache()
+    if "decoders" not in runs:
+        return results, arrays
+    model = _spatial_model(dev, True)
+    forward = forward_of(model)
+    forward(images)
+    arrays["decoders"] = whole(timed("decoders", lambda: forward(images)))
+    if mesh is None:
+        # The same forward on the batch in reverse order: how far the order
+        # of float32 sums alone moves the skip decoder's batch moments.
+        arrays["decoders_reordered"] = forward(images.flip(0)).flip(0).cpu()
+    del model, forward
+    torch.cuda.empty_cache()
+    return results, arrays
+
+
+def spatial_rank(outdir):
+    """One rank of the `spatial` phase's world of 2 on the one card (run
+    under `torch.distributed.run`): the three runs on this rank's rows.
+    Each rank writes what it measured to `outdir`, rank 0 the gathered
+    probabilities and the new state too; the kernel counts are summed
+    over the ranks."""
+    import torch
+    import torch.distributed as dist
+    from mliis_tpu_torch.parallel import spatial
+    mesh = spatial.make_spatial_mesh(MESH_RANKS, "cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    results, arrays = _spatial_runs(dev, mesh)
+    for run in SPATIAL_RUNS:
+        launches = results[run]["launches"]
+        t = torch.tensor([float(launches[k]) for k in KERNELS], device=dev)
+        dist.all_reduce(t)
+        results[run]["launches"] = {k: int(v)
+                                    for k, v in zip(KERNELS, t.tolist())}
+    rank = dist.get_rank()
+    results["backend"] = dist.get_backend()
+    results["device"] = str(dev)
+    if rank == 0:
+        torch.save(arrays, os.path.join(outdir, "arrays.pt"))
+    with open(os.path.join(outdir, "rank{}.json".format(rank)), "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_spatial(dev):
+    """The spatial partitioning (parallel/spatial.py) on the one card.
+
+    1. A world of 1 (no mesh): the eval forward of EfficientLab-b0 rsd=(2,
+       4) on 8 images at 1024^2, one loss-and-grad SGD step from the same
+       weights, and the eval forward with ASPP and skip decoding.
+    2. A world of 2 on the card over gloo (`torch.distributed.run`): the
+       same runs on H shards, the probabilities gathered.
+    Each sharded result is held against the world of 1's: probabilities
+    within SPATIAL_PROB_BAR abs, the step's state (params, running stats)
+    within SPATIAL_STATE_BAR of its largest change and the loss within
+    SPATIAL_STATE_BAR relative; no kernel is launched on any run. Returns
+    {path: launches}."""
+    import shutil
+    import tempfile
+    import torch
+    from mliis_tpu_torch.meta.inner_loop import (OptimizerConfig,
+                                                 init_model_state)
+    t_phase = time.time()
+    workdir = tempfile.mkdtemp(prefix="spatial_smoke_")
+    counts, failed = {}, []
+    none = {k: 0 for k in KERNELS}
+    try:
+        start = _cpu_state(init_model_state(_spatial_model("cpu", False),
+                                            OptimizerConfig("sgd")))
+        w1, a1 = _spatial_runs(dev)
+        for run in SPATIAL_RUNS:
+            counts["spatial_w1_" + run] = w1[run]["launches"]
+            log("spatial[w1_{}]: world of 1 | wall {:.3f} s | peak memory "
+                "{:.2f} GB | launches {} (expect {})".format(
+                    run, w1[run]["wall"], w1[run]["peak"] / 1e9,
+                    w1[run]["launches"], none))
+            if w1[run]["launches"] != none:
+                failed.append("spatial_w1_" + run)
+        torch.cuda.empty_cache()
+
+        outdir = os.path.join(workdir, "w2")
+        os.makedirs(outdir)
+        t0 = time.time()
+        code = _launch_ranks(outdir, timeout=600, entry="--spatial-rank")
+        log("spatial: the world of 2 ran {:.2f} s, exit code {}".format(
+            time.time() - t0, code))
+        if code != 0:
+            raise AssertionError("the spatial world of 2 failed")
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(outdir, "rank{}.json".format(r))) as f:
+                ranks.append(json.load(f))
+        a2 = torch.load(os.path.join(outdir, "arrays.pt"))
+        backends = {r["backend"] for r in ranks}
+        log("spatial: world of 2 | backend {} | devices {}".format(
+            sorted(backends), [r["device"] for r in ranks]))
+        if backends != {"gloo"}:
+            failed.append("spatial_backend_w2")
+
+        gaps = {"forward": float((a2["probs"] - a1["probs"]).abs().max()),
+                "decoders": float((a2["decoders"]
+                                   - a1["decoders"]).abs().max())}
+        reordered = float((a1["decoders_reordered"]
+                           - a1["decoders"]).abs().max())
+        state_gap = _state_gap(a2["state"], a1["state"], start)
+        moved = max(float((a1["state"][k] - start[k]).abs().max())
+                    for k in start)
+        loss_gap = abs(ranks[0]["step"]["loss"] - w1["step"]["loss"])
+        gaps["step"] = state_gap[1]
+        for run in SPATIAL_RUNS:
+            path = "spatial_w2_" + run
+            counts[path] = ranks[0][run]["launches"]
+            if run == "step":
+                ok = (state_gap[1] <= SPATIAL_STATE_BAR
+                      and loss_gap <= SPATIAL_STATE_BAR * abs(
+                          w1["step"]["loss"]))
+                gap_text = ("largest state gap {:.3g} ({:.3g} of the "
+                            "largest change {:.3g}; bar {}) | loss {:.6f} "
+                            "(world of 1: {:.6f}; relative gap {:.3g})"
+                            .format(state_gap[0], state_gap[1], moved,
+                                    SPATIAL_STATE_BAR,
+                                    ranks[0]["step"]["loss"],
+                                    w1["step"]["loss"],
+                                    loss_gap / abs(w1["step"]["loss"])))
+            else:
+                ok = gaps[run] <= SPATIAL_PROB_BAR
+                gap_text = "largest probability gap {:.3g} (bar {})".format(
+                    gaps[run], SPATIAL_PROB_BAR)
+                if run == "decoders":
+                    gap_text += (" | the world of 1 on the batch reversed: "
+                                 "{:.3g}".format(reordered))
+            log("spatial[w2_{}]: world of 2 | wall per rank {} s (world of "
+                "1: {:.3f}) | peak memory per rank {} GB (world of 1: {:.2f})"
+                " | all-reduces per rank {} ({} MB, {} s inside them) | {} | "
+                "launches {} (expect {})".format(
+                    run, ["{:.3f}".format(r[run]["wall"]) for r in ranks],
+                    w1[run]["wall"],
+                    ["{:.2f}".format(r[run]["peak"] / 1e9) for r in ranks],
+                    w1[run]["peak"] / 1e9,
+                    [r[run]["all_reduces"] for r in ranks],
+                    ["{:.1f}".format(r[run]["all_reduce_bytes"] / 1e6)
+                     for r in ranks],
+                    ["{:.3f}".format(r[run]["all_reduce_s"]) for r in ranks],
+                    gap_text, counts[path], none))
+            if not ok or counts[path] != none:
+                failed.append(path)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log("spatial: the phase's wall {:.2f} s".format(time.time() - t_phase))
+    if failed:
+        raise AssertionError("the spatial partitioning did not run as "
+                             "expected: {}".format(", ".join(failed)))
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1831,6 +2136,7 @@ def main() -> int:
     by_path.update(phase_train(dev))
     by_path.update(phase_decoders(dev))
     by_path.update(phase_mesh(dev))
+    by_path.update(phase_spatial(dev))
     # Each kernel's `launches` is read from the path it carries: the
     # meta-step for full_pass, the split-route evaluation for cheap_pass,
     # the joint run for fused_light_augment; every path's counts beside.
@@ -1852,7 +2158,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--mesh-rank"]:
+    RANK_ENTRIES = {"--mesh-rank": mesh_rank, "--spatial-rank": spatial_rank}
+    if sys.argv[1:2] and sys.argv[1] in RANK_ENTRIES:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        sys.exit(mesh_rank(sys.argv[2]))
+        sys.exit(RANK_ENTRIES[sys.argv[1]](sys.argv[2]))
     sys.exit(main())

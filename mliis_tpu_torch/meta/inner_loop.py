@@ -39,6 +39,7 @@ import torch
 from mliis_tpu_torch.meta import episodes
 from mliis_tpu_torch.ops import losses as losses_lib
 from mliis_tpu_torch.parallel import mesh as mesh_lib
+from mliis_tpu_torch.parallel import spatial
 
 Tree = Dict[str, torch.Tensor]
 
@@ -148,10 +149,18 @@ def make_loss_and_grad(model: torch.nn.Module, loss_config: LossConfig,
     exact: the axis sum's backward hands every shard the summed cotangent,
     so a shard's data gradient comes out at num_shards times its share,
     while the replicated l2/l1 terms come out at their true scale on every
-    shard; the average rescales the first and keeps the second."""
+    shard; the average rescales the first and keeps the second.
+
+    Under a bound spatial context (`parallel/spatial.py`) images and masks
+    are this rank's rows: the loss sums over the spatial axis in the same
+    way, the row exchanges' transposes carry each rank's cotangents to the
+    rows' owners, and the averaged gradients are the whole images'."""
     params = dict(model.named_parameters())
 
     def loss_and_grad(images, masks, generator, drop_rate):
+        spatial_axis_name = (spatial.SPATIAL_AXIS if spatial.current()
+                             is not None else None)
+        axis_name = data_axis_name or spatial_axis_name
         logits, probs = model(images, train=True,
                               final_layer_dropout_rate=drop_rate,
                               generator=generator)
@@ -161,10 +170,11 @@ def make_loss_and_grad(model: torch.nn.Module, loss_config: LossConfig,
             dice=loss_config.dice,
             binary_iou_loss=loss_config.binary_iou_loss, l2=loss_config.l2,
             l1=loss_config.l1, darc1=loss_config.darc1,
-            data_axis_name=data_axis_name)
+            data_axis_name=data_axis_name,
+            spatial_axis_name=spatial_axis_name)
         grads = torch.autograd.grad(loss, list(params.values()))
-        if data_axis_name is not None:
-            grads = mesh_lib.pmean_grads(grads, data_axis_name)
+        if axis_name is not None:
+            grads = mesh_lib.pmean_grads(grads, axis_name)
         return loss.detach(), grads
 
     return loss_and_grad

@@ -20,6 +20,11 @@ dropout rate is a fixed 0.5 in training, apart from the final layer's.
 skip decoder's and the RSD modules' included, averages its batch moments
 (sync-BN for the data-sharded paths, `parallel/mesh.py`).
 
+Under a bound spatial context (`parallel/spatial.py`) the images are this
+rank's rows: the per-image means sum over every rank's rows
+(`spatial.mean_hw`), and the resizes take the global heights (the
+images', the skip's and `in_h // 4` of the global `in_h`).
+
 bf16 follows flax's `dtype=`: activations and kernels are cast to the
 compute dtype at each conv and batch norm, params stay float32, and the
 logits are float32. Where the JAX graph promotes (a resize to a new size
@@ -35,6 +40,7 @@ import torch.nn as nn
 from mliis_tpu_torch.models import layers
 from mliis_tpu_torch.models.efficientnet import EfficientNetFeatures
 from mliis_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw
+from mliis_tpu_torch.parallel import spatial
 
 MEAN_RGB = (0.485 * 255, 0.456 * 255, 0.406 * 255)
 STDDEV_RGB = (0.229 * 255, 0.224 * 255, 0.225 * 255)
@@ -98,13 +104,13 @@ class ResidualSkipDecoder(nn.Module):
     def forward(self, embedded: torch.Tensor, skip: torch.Tensor,
                 train: bool) -> torch.Tensor:
         upsampled = resize_bilinear_align_corners_nchw(
-            embedded, skip.shape[-2], skip.shape[-1])
+            embedded, spatial.global_height(skip), skip.shape[-1])
         decoded = _cat([upsampled, skip])
         if hasattr(self, "upsample_proj"):
             upsampled = self.upsample_proj(upsampled, train)
         branch_0 = self.branch_0(decoded, train)
         branch_1 = self.branch_1(decoded, train)
-        branch_2 = decoded.mean((2, 3), keepdim=True).expand_as(decoded)
+        branch_2 = spatial.mean_hw(decoded).expand_as(decoded)
         out = self.fuse(_cat([branch_0, branch_1, branch_2]), train)
         if self.residual:
             out = out + upsampled
@@ -157,8 +163,10 @@ class Aspp(nn.Module):
         b0 = _dropout(layers.swish(self.branch_0(x)), rate, train, generator)
         b1 = _dropout(layers.swish(self.branch_1(x)), rate, train, generator)
         # The pooled branch drops before its swish, the others after.
-        b2 = layers.swish(_dropout(self.branch_2(x.mean((2, 3), keepdim=True)),
-                                   rate, train, generator))
+        pooled = spatial.mean_hw(x)
+        with spatial.replicated():
+            b2 = layers.swish(_dropout(self.branch_2(pooled), rate, train,
+                                       generator))
         b2 = b2.expand(-1, -1, x.shape[2], x.shape[3])
         out = self.fuse(_cat([b2, b1, b0]))
         return _dropout(layers.swish(out), rate, train, generator)
@@ -233,7 +241,7 @@ class EfficientLab(nn.Module):
         stay NCHW at the decoder's resolution and no probabilities are
         computed (None takes their place): a caller with many classes
         resizes and takes its loss a piece at a time (joint/trainer.py)."""
-        in_h, in_w = images.shape[1], images.shape[2]
+        in_h, in_w = spatial.global_height(images, 1), images.shape[2]
         mean = torch.tensor(MEAN_RGB, dtype=images.dtype,
                             device=images.device)
         std = torch.tensor(STDDEV_RGB, dtype=images.dtype,

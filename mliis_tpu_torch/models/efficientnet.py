@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from mliis_tpu_torch.models import layers
+from mliis_tpu_torch.parallel import spatial
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,7 +154,7 @@ class MBConvBlock(nn.Module):
         x = layers.swish(self.batch_normalization_1(self.depthwise_conv(x),
                                                     train))
         if self.has_se:
-            se = x.mean((2, 3), keepdim=True)
+            se = spatial.mean_hw(x)
             se = self.se_expand(layers.swish(self.se_reduce(se)))
             x = torch.sigmoid(se) * x
         x = self.batch_normalization_2(self.project_conv(x), train)

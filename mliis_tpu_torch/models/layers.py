@@ -19,7 +19,12 @@ What differs from the obvious `nn.Conv2d` / `nn.BatchNorm2d`:
     that mesh axis (sync-BN, the JAX package's `lax.pmean`), so every
     shard of a split batch normalizes by, and keeps running stats of, the
     whole batch's moments; the axis must be bound
-    (`parallel.mesh.bound`) when batch moments are taken.
+    (`parallel.mesh.bound`) when batch moments are taken;
+  - under a bound spatial context (`parallel/spatial.py`, the H axis split
+    over ranks) a conv with a window (k > 1 or stride > 1) fetches the
+    input rows its owned output rows read and pads only W, a batch norm
+    without `axis_name` takes the moments of every rank's rows, and
+    dropout keeps this rank's rows of the whole map's mask.
 Parameter names keep the flax names (`kernel`, `bias`, `scale`; running
 stats `mean`, `var`) so checkpoints map one to one and the l2 term can skip
 batch norm by name.
@@ -32,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mliis_tpu_torch.parallel import mesh as mesh_lib
+from mliis_tpu_torch.parallel import spatial
 
 
 def same_padding(size: int, kernel: int, stride: int = 1,
@@ -86,6 +92,9 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s, d = self.kernel_size, self.stride, self.dilation
+        if spatial.current() is not None and (k > 1 or s > 1
+                                              or x.shape[-2] == 0):
+            return self._forward_sharded(x)
         ph = same_padding(x.shape[-2], k, s, d)
         pw = same_padding(x.shape[-1], k, s, d)
         dtype = self.compute_dtype or torch.result_type(x, self.kernel)
@@ -96,6 +105,28 @@ class Conv2d(nn.Module):
         return F.conv2d(x, self.kernel.to(dtype), bias, stride=s,
                         dilation=d, groups=self.groups)
 
+    def _forward_sharded(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's output rows of the conv of an H-sharded map: the
+        'SAME' padding of the global height, the input rows fetched from
+        the ranks that own them (zeros past the image's edges). A rank with
+        no output rows convolves a zero window of the kernel's height and
+        keeps no row: its graph still holds every collective."""
+        k, s, d = self.kernel_size, self.stride, self.dilation
+        height = spatial.global_height(x)
+        out_h, lo, hi = spatial.conv_windows(
+            height, k, s, d, same_padding(height, k, s, d)[0])
+        pw = same_padding(x.shape[-1], k, s, d)
+        spatial.register(-(-x.shape[-1] // s), out_h)
+        dtype = self.compute_dtype or torch.result_type(x, self.kernel)
+        x = spatial.fetch_rows(x.to(dtype), lo, hi)
+        effective = (k - 1) * d + 1
+        x = F.pad(x, (pw[0], pw[1], 0, max(effective - x.shape[-2], 0)))
+        bias = None if self.bias is None else self.bias.to(dtype)
+        out = F.conv2d(x, self.kernel.to(dtype), bias, stride=s, dilation=d,
+                       groups=self.groups)
+        own = spatial.owned_rows(out_h)
+        return out[:, :, :own[1] - own[0]]
+
 
 class FusedBatchNorm(nn.Module):
     """Scale-bias-folded batch norm (the JAX package's `FusedBatchNorm`).
@@ -103,7 +134,9 @@ class FusedBatchNorm(nn.Module):
     `always_batch_stats=True` normalizes by the batch's moments whatever
     `train` says; `train` then only decides whether the running stats are
     updated, so an eval-mode forward leaves the buffers as they were.
-    `axis_name` averages the batch moments over that bound mesh axis."""
+    `axis_name` averages the batch moments over that bound mesh axis;
+    without one, a bound spatial context sums them over every rank's
+    rows."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-3,
@@ -130,8 +163,11 @@ class FusedBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if train or self.always_batch_stats:
             xf = x.float()
-            mean = xf.mean((0, 2, 3))
-            mean2 = xf.square().mean((0, 2, 3))
+            if self.axis_name is None and spatial.current() is not None:
+                mean, mean2 = spatial.moments(xf)
+            else:
+                mean = xf.mean((0, 2, 3))
+                mean2 = xf.square().mean((0, 2, 3))
             if self.axis_name is not None:
                 mean, mean2 = mesh_lib.pmean(torch.stack([mean, mean2]),
                                              self.axis_name)
@@ -165,8 +201,16 @@ def drop_connect(generator: torch.Generator, x: torch.Tensor,
 
 def traced_dropout(generator: torch.Generator, x: torch.Tensor,
                    rate: float) -> torch.Tensor:
-    """Inverted dropout: keep with probability 1-rate, scale by 1/keep."""
+    """Inverted dropout: keep with probability 1-rate, scale by 1/keep.
+    Under a spatial context an NCHW map keeps this rank's rows of the
+    mask drawn for every row, so the generator moves as in the unsharded
+    forward."""
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < keep_prob
+    if spatial.current() is None:
+        draw = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        shape = x.shape[:-2] + (spatial.global_height(x), x.shape[-1])
+        draw = spatial.take_rows(torch.rand(shape, generator=generator,
+                                            device=x.device))
+    keep = draw < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))

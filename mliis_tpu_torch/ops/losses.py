@@ -22,14 +22,23 @@ package's `_axis_sum`), so each shard returns the whole batch's loss; an
 unweighted count is the local count times the axis size, the value the
 JAX package's psum of the constant gives. The l2/l1 terms of the
 replicated params stay local.
+
+With `spatial_axis_name` every image is split by rows over that bound
+axis (`parallel/spatial.py`) and the loss is the whole images': the CE
+sums over the axis and divides by the summed pixel count (the ranks hold
+unequal row counts), each image's soft intersection and sums of the dice
+term are summed over the axis before the ratio, and darc1 takes the max
+over every rank's positions of its batch sums. The batch is whole on
+every rank, so the means over images stay local.
 """
+import math
 import re
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
-from mliis_tpu_torch.ops.metrics import soft_iou_flat_per_example
+from mliis_tpu_torch.ops.metrics import EPSILON, soft_iou_flat_per_example
 from mliis_tpu_torch.parallel import mesh as mesh_lib
 
 _BN_PATH_TOKENS = ("batch_normalization", "batchnorm", "bn")
@@ -55,24 +64,42 @@ def _axis_count(n: int, data_axis_name: str) -> int:
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           label_smoothing: float = 0.0,
                           weights: Optional[torch.Tensor] = None,
-                          data_axis_name: Optional[str] = None
+                          data_axis_name: Optional[str] = None,
+                          spatial_axis_name: Optional[str] = None
                           ) -> torch.Tensor:
     """-sum(labels * log_softmax(logits)) over [M, C], smoothed labels,
     averaged over the M examples (those with nonzero `weights` [M]), over
-    the whole batch split along `data_axis_name` where one is named."""
+    the whole batch split along `data_axis_name`, or the whole images
+    split by rows along `spatial_axis_name`, where one is named."""
     if label_smoothing:
         labels = (labels * (1.0 - label_smoothing)
                   + label_smoothing / logits.shape[-1])
     per_example = -(labels * F.log_softmax(logits, dim=-1)).sum(-1)
+    axis = data_axis_name or spatial_axis_name
     if weights is None:
-        if data_axis_name is None:
+        if axis is None:
             return per_example.mean()
+        if spatial_axis_name is not None:
+            local = per_example.sum()
+            total, count = mesh_lib.psum(torch.stack([
+                local, torch.full_like(local, float(per_example.shape[0]))]),
+                spatial_axis_name)
+            return total / count
         return (_axis_sum(per_example.sum(), data_axis_name)
                 / _axis_count(per_example.shape[0], data_axis_name))
     num_nonzero = torch.clamp(
-        _axis_sum((weights != 0).sum().float(), data_axis_name), min=1)
-    return _axis_sum((per_example * weights).sum(),
-                     data_axis_name) / num_nonzero
+        _axis_sum((weights != 0).sum().float(), axis), min=1)
+    return _axis_sum((per_example * weights).sum(), axis) / num_nonzero
+
+
+def _spatial_soft_iou(true_flat: torch.Tensor, pred_flat: torch.Tensor,
+                      axis_name: str) -> torch.Tensor:
+    """`soft_iou_flat_per_example` of images split by rows over the axis:
+    the intersection and sums of [N, D] pieces summed before the ratio."""
+    intersection = (pred_flat * true_flat).sum(1)
+    inter, pred, true = mesh_lib.psum(torch.stack([
+        intersection, pred_flat.sum(1), true_flat.sum(1)]), axis_name)
+    return (inter + EPSILON) / (pred + true - inter + EPSILON)
 
 
 def soft_dice_adjustment(ce_loss: torch.Tensor,
@@ -99,14 +126,20 @@ def l1_term(params: Dict[str, torch.Tensor],
 
 def darc1_term(logits: torch.Tensor, weight: float = 0.0005,
                example_weights: Optional[torch.Tensor] = None,
-               data_axis_name: Optional[str] = None) -> torch.Tensor:
+               data_axis_name: Optional[str] = None,
+               spatial_axis_name: Optional[str] = None) -> torch.Tensor:
     """weight * max_j sum_i |logits_ij|, i over the batch (first) dim,
-    the batch sum taken across `data_axis_name` before the max;
+    the batch sum taken across `data_axis_name` before the max, the max
+    taken across `spatial_axis_name` (a rank with no rows holds -inf);
     `example_weights` [N] mask padded examples out of the sum."""
     flat = logits.reshape(logits.shape[0], -1).abs()
     if example_weights is not None:
         flat = flat * example_weights[:, None]
-    return weight * _axis_sum(flat.sum(0), data_axis_name).max()
+    sums = _axis_sum(flat.sum(0), data_axis_name)
+    if spatial_axis_name is None:
+        return weight * sums.max()
+    local = torch.cat([sums, sums.new_full((1,), -math.inf)]).max()
+    return weight * mesh_lib.pmax(local, spatial_axis_name)
 
 
 def segmentation_loss(logits: torch.Tensor, probabilities: torch.Tensor,
@@ -116,19 +149,24 @@ def segmentation_loss(logits: torch.Tensor, probabilities: torch.Tensor,
                       binary_iou_loss: bool = True, l2: bool = True,
                       l1: bool = False, darc1: bool = False,
                       example_weights: Optional[torch.Tensor] = None,
-                      data_axis_name: Optional[str] = None
+                      data_axis_name: Optional[str] = None,
+                      spatial_axis_name: Optional[str] = None
                       ) -> torch.Tensor:
     """logits, probabilities, labels: [N, H, W, C] (C = 2, [bg, fg]);
     example_weights: optional [N] mask for padded batch slots;
     data_axis_name: set when N is this shard's part of a batch split over
-    that mesh axis (the loss is then the whole batch's)."""
+    that mesh axis (the loss is then the whole batch's);
+    spatial_axis_name: set when H is this rank's rows of images split over
+    that axis (the loss is then the whole images')."""
+    if data_axis_name is not None and spatial_axis_name is not None:
+        raise ValueError("a loss sums over one mesh axis")
     n, h, w, c = logits.shape
     pixel_weights = None
     if example_weights is not None:
         pixel_weights = torch.repeat_interleave(example_weights, h * w)
     loss = softmax_cross_entropy(logits.reshape(-1, c), labels.reshape(-1, c),
                                  label_smoothing, pixel_weights,
-                                 data_axis_name)
+                                 data_axis_name, spatial_axis_name)
     if dice:
         if binary_iou_loss:
             true_flat = labels[..., 1].reshape(n, -1)
@@ -136,7 +174,11 @@ def segmentation_loss(logits: torch.Tensor, probabilities: torch.Tensor,
         else:
             true_flat = labels.reshape(n, -1)
             pred_flat = probabilities.reshape(n, -1)
-        per_image_iou = soft_iou_flat_per_example(true_flat, pred_flat)
+        if spatial_axis_name is None:
+            per_image_iou = soft_iou_flat_per_example(true_flat, pred_flat)
+        else:
+            per_image_iou = _spatial_soft_iou(true_flat, pred_flat,
+                                              spatial_axis_name)
         if example_weights is None and data_axis_name is None:
             iou = per_image_iou.mean()
         elif example_weights is None:
@@ -150,7 +192,8 @@ def segmentation_loss(logits: torch.Tensor, probabilities: torch.Tensor,
         loss = soft_dice_adjustment(loss, iou)
     if darc1:
         loss = loss + darc1_term(logits, example_weights=example_weights,
-                                 data_axis_name=data_axis_name)
+                                 data_axis_name=data_axis_name,
+                                 spatial_axis_name=spatial_axis_name)
     if params is not None:
         if l2:
             loss = loss + l2_term(params)

@@ -268,6 +268,32 @@ def pmean(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     return psum(x, axis_name) / axis_size(axis_name)
 
 
+class _AllReduceMax(torch.autograd.Function):
+    """Max over a group; backward hands the summed cotangent to the ranks
+    whose value is the max (psum's convention for the cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad * (x == out).to(grad.dtype), None
+
+
+def pmax(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Max of `x` over the bound axis, differentiable."""
+    return _AllReduceMax.apply(x, _bound_mesh(axis_name).get_group(
+        axis_name))
+
+
 def all_reduce_sum(tensors: Sequence[torch.Tensor], group
                    ) -> List[torch.Tensor]:
     """The sums over `group` of same-dtype tensors, in one flat

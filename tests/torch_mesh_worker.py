@@ -10,6 +10,7 @@ holds the results against the JAX package and the port's own world of 1.
 
 A case is a dict with `name`, `kind` (a function below) and its arguments.
 """
+import datetime
 import os
 import shlex
 
@@ -26,7 +27,10 @@ from mliis_tpu_torch.meta import learners as tlr
 from mliis_tpu_torch.meta import train as ttrain
 from mliis_tpu_torch.meta import uho_eval as tuho
 from mliis_tpu_torch.models import layers
+from mliis_tpu_torch.models.efficientlab import EfficientLab
+from mliis_tpu_torch.ops import losses as tlosses
 from mliis_tpu_torch.parallel import mesh as mesh_lib
+from mliis_tpu_torch.parallel import spatial
 from tests.torch_tiny_model import TorchTinySeg
 
 
@@ -218,14 +222,137 @@ def drivers(case):
             "joint": joint.params}
 
 
+def spatial_model(case):
+    """The case's model ("tiny": TorchTinySeg; "lab": EfficientLab with
+    `kwargs`) with its weights, drop-connect at `drop_connect_rate`."""
+    if case["model"] == "tiny":
+        model = TorchTinySeg(**case.get("kwargs", {}))
+    else:
+        model = EfficientLab(**case["kwargs"])
+        getattr(model, model.backbone_name).drop_connect_rate = \
+            case.get("drop_connect_rate", 0.0)
+    model.load_state_dict(case["state_dict"], strict=True)
+    return model
+
+
+def spatial_run(case, mesh=None):
+    """The eval forward's probabilities, then one loss-and-grad SGD step
+    (`case["step"]`: loss flags, lr, drop rate, generator seed) from the
+    same weights: sharded over `mesh`'s spatial axis, or whole without
+    one. Returns the whole probabilities (gathered), the loss and the new
+    state. The test process calls it with no mesh for the reference."""
+    model = spatial_model(case)
+    images, masks = case["images"], case["masks"]
+    height, width = images.shape[1:3]
+    out = {}
+    if mesh is None:
+        with torch.no_grad():
+            out["probs"] = model(images, train=False)[1]
+    else:
+        probs = spatial.make_spatial_forward(model, mesh)(
+            spatial.shard_spatial(images, mesh))
+        out["probs"] = spatial.gather_spatial(probs, mesh, height)
+        images = spatial.shard_spatial(images, mesh)
+        masks = spatial.shard_spatial(masks, mesh)
+    step = case.get("step")
+    if step is None:
+        return out
+    opt = til.init_opt_state(dict(model.named_parameters()),
+                             til.OptimizerConfig("sgd"))
+    loss_and_grad = til.make_loss_and_grad(model,
+                                           til.LossConfig(**step["loss"]))
+    generator = torch.Generator().manual_seed(step["seed"])
+    if mesh is None:
+        loss, grads = loss_and_grad(images, masks, generator, step["drop"])
+    else:
+        with spatial.bound(mesh, height, width):
+            loss, grads = loss_and_grad(images, masks, generator,
+                                        step["drop"])
+    opt = til.apply_optimizer_(list(model.parameters()), grads, opt,
+                               step["lr"], til.OptimizerConfig("sgd"))
+    state = til.snapshot(model, opt)
+    out.update(loss=float(loss), params=state.params,
+               batch_stats=state.batch_stats)
+    return out
+
+
+def spatial_case(case):
+    """`spatial_run` on a spatial mesh of the world."""
+    return spatial_run(case, spatial.make_spatial_mesh(None, "cpu"))
+
+
+class _Replicated(torch.autograd.Function):
+    """The identity on a tensor every rank holds whole; its gradient is
+    averaged over the ranks, each of which holds the part that flowed
+    through its own rows (times the world size, psum's convention)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad)
+        return grad / dist.get_world_size()
+
+
+def fetch_rows_gradcheck(case):
+    """`torch.autograd.gradcheck` in float64 of the whole map -> every
+    rank's window, put together: each rank takes its rows of the same
+    map, fetches its window (`case["lo"]`, `case["hi"]`) and the windows
+    are summed into place, so every rank checks the same function and
+    perturbs the same element at the same time."""
+    mesh = spatial.make_spatial_mesh(None, "cpu")
+    x = case["x"].clone().requires_grad_(True)
+    lo, hi = case["lo"], case["hi"]
+    sizes = [h - l for l, h in zip(lo, hi)]
+    rank = dist.get_rank()
+
+    def windows(full):
+        local = spatial.shard_spatial(
+            _Replicated.apply(full).permute(0, 2, 3, 1),
+            mesh).permute(0, 3, 1, 2)
+        window = spatial.fetch_rows(local, lo, hi)
+        placed = torch.nn.functional.pad(window, (
+            0, 0, sum(sizes[:rank]), sum(sizes[rank + 1:])))
+        return mesh_lib.psum(placed, spatial.SPATIAL_AXIS)
+
+    with spatial.bound(mesh, x.shape[2], x.shape[3]):
+        ok = torch.autograd.gradcheck(windows, (x,), eps=1e-6, atol=1e-8)
+        out = windows(x.detach())
+    return {"ok": ok, "out": out}
+
+
+def spatial_guards(case):
+    """What the spatial path refuses, each one's exception."""
+    mesh = spatial.make_spatial_mesh(None, "cpu")
+    x = torch.zeros(1, 2, 4, 3)
+    model = spatial_model(case)
+    logits = torch.zeros(1, 4, 4, 2)
+    return {
+        "unbound_fetch": _raised(lambda: spatial.fetch_rows(
+            x, [0, 0], [1, 1])),
+        "wrong_rows": _raised(lambda: spatial.make_spatial_forward(
+            model, mesh)(torch.zeros(1, 3 + 2 * dist.get_rank(), 16, 3))),
+        "task_mesh": _raised(lambda: spatial.make_spatial_forward(
+            model, mesh_lib.make_task_mesh(None, "cpu"))),
+        "two_axes": _raised(lambda: tlosses.segmentation_loss(
+            logits, logits, logits, data_axis_name="data",
+            spatial_axis_name=spatial.SPATIAL_AXIS)),
+    }
+
+
 KINDS = {f.__name__: f for f in (meta_step, sync_bn, evaluation,
-                                 joint_steps, guards, drivers)}
+                                 joint_steps, guards, drivers, spatial_case,
+                                 fetch_rows_gradcheck, spatial_guards)}
 
 
 def _rank(rank, world, out_dir, cases):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method="file://" + os.path.join(
-        out_dir, "gloo_store"), rank=rank, world_size=world)
+        out_dir, "gloo_store"), rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=300))
     try:
         for case in cases:
             torch.save(KINDS[case["kind"]](case), os.path.join(
@@ -237,8 +364,21 @@ def _rank(rank, world, out_dir, cases):
 def spawn(world, out_dir, cases):
     """Run `cases` on a gloo world of `world` spawned processes; returns
     {case name: [each rank's result]}."""
-    os.makedirs(out_dir, exist_ok=True)
-    mp.spawn(_rank, args=(world, out_dir, cases), nprocs=world, join=True)
+    return spawn_worlds({world: (out_dir, cases)})
+
+
+def spawn_worlds(worlds):
+    """`spawn` for several worlds at once, {world: (out_dir, cases)}, all
+    started before any is joined."""
+    running = []
+    for world, (out_dir, cases) in worlds.items():
+        os.makedirs(out_dir, exist_ok=True)
+        running.append(mp.spawn(_rank, args=(world, out_dir, cases),
+                                nprocs=world, join=False))
+    for context in running:
+        while not context.join():
+            pass
     return {c["name"]: [torch.load(os.path.join(
         out_dir, "{}.rank{}.pt".format(c["name"], r)), weights_only=False)
-        for r in range(world)] for c in cases}
+        for r in range(world)] for world, (out_dir, cases) in worlds.items()
+        for c in cases}

@@ -1,11 +1,13 @@
 """tests/tiny_model.TinySeg in the port's layers, with the same parameter
 names, so one set of weights loads into both (`params_from_jax`), and the
-same sync-BN axis (`bn_axis_name`)."""
+same sync-BN axis (`bn_axis_name`); under a spatial context it upsamples
+to the images' global height (`parallel/spatial.py`)."""
 import torch
 import torch.nn as nn
 
 from mliis_tpu_torch.models import layers
 from mliis_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw
+from mliis_tpu_torch.parallel import spatial
 
 
 class TorchTinySeg(nn.Module):
@@ -38,5 +40,6 @@ class TorchTinySeg(nn.Module):
         if not upsample:
             return x, None
         logits = resize_bilinear_align_corners_nchw(
-            x, images.shape[1], images.shape[2]).permute(0, 2, 3, 1)
+            x, spatial.global_height(images, 1),
+            images.shape[2]).permute(0, 2, 3, 1)
         return logits, torch.softmax(logits, dim=-1)

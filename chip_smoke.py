@@ -11,9 +11,11 @@ its phases, one line each (or a few):
      odd 5 x 225^2 (padded lines and bins) and the largest plane the
      wrapper takes, 5 x 512^2: fixed rows that run every op and every
      rotation mode, then (but at 512^2) rows drawn as the meta path draws
-     them. Tolerances: 1e-3 abs on samples without rotation; on rotated
-     samples 1e-2 abs on the image planes (0..255) and at most 1e-4 of the
-     mask pixels flipped (fg/bg ties within float32 DFT rounding). Times
+     them; then the batched meta-step's B=40 (5 tasks x 8) at 224^2, the
+     fixed rows repeated. Tolerances: 1e-3 abs on samples without
+     rotation; on rotated samples 1e-2 abs on the image planes (0..255)
+     and at most 1e-4 of the mask pixels flipped (fg/bg ties within
+     float32 DFT rounding). Times
      each size, computes the bounds and prints each size's cluster size
      and shared memory beside the kernel's registers and spills.
   3. kernel[cheap_pass]: `cheap_pass` against `cheap_pass_reference` at
@@ -21,7 +23,8 @@ its phases, one line each (or a few):
      5 x 161 x 225 (4-byte copies, scalar stores): fixed rows covering
      every op, both translate modes in both directions, an empty window, a
      rotation-only stage and the two windows around a rotation, then rows
-     drawn as the split route draws them (both windows). Image planes
+     drawn as the split route draws them (both windows); then a batched
+     evaluation chunk's B=16 (2 tasks x 8) at 224^2. Image planes
      1e-3 abs on 0..255, mask planes exact. Times each size and computes
      the bound; then rows too wide for shared memory (5 x 3 x 5000, the
      direct mode) are checked alone.
@@ -57,7 +60,8 @@ its phases, one line each (or a few):
   7. eval: run.sh's evaluation protocol (`meta.evaluate.evaluate_gecko`)
      on the committed experiments/curve_v2_r4 checkpoint over its 12
      held-out synthetic tasks at 224^2, on the fused route and on the split
-     route (`PALLAS_FUSED_SINGLE_LAUNCH = False`): exactly 12 x 59 = 708
+     route (`PALLAS_FUSED_SINGLE_LAUNCH = False`), the tasks one after
+     another (`chain_chunk`): exactly 12 x 59 = 708
      `full_pass` launches and no `cheap_pass` on the first, 2 x 708 = 1416
      `cheap_pass` launches and no `full_pass` on the second, and on each a
      mean IoU within 0.15 of the JAX package's (result.json), printed with
@@ -113,8 +117,9 @@ its phases, one line each (or a few):
      CLI with `--mesh_tasks 1` (the `train` run cut to 1 meta-iter and 10
      evaluation steps a task: 1 x 5 x 58 + 1 x (6 + 2) x 10 + 1 x (1 + 2)
      x 10 = 400 `full_pass` launches), then one library FOMAML* meta-step
-     unsharded and one through `make_sharded_train_step` on a task mesh
-     of 1 from the same state and draw seed (dropout and drop-connect 0),
+     of 30 inner steps a task unsharded and one through
+     `make_sharded_train_step` (its slots chained) on a task mesh of 1
+     from the same state and draw seed (dropout and drop-connect 0),
      then 2 unsharded joint steps at 1001 channels and batch 64 (the store
      cut to 1 image a class). A world of 2 on the one card over gloo
      (`python -m torch.distributed.run --standalone --nproc_per_node 2
@@ -124,9 +129,9 @@ its phases, one line each (or a few):
      unsharded one (largest gap within MESH_*_BAR of the largest change),
      the CLIs' mean IoUs within MESH_IOU_BAR, the backends must be NCCL
      and gloo, and the launches are exact, summed over the ranks: 400 for
-     either CLI, 290 a rank on the 1x2 step, 1 `fused_light_augment` a
-     rank a step. Prints each run's seconds (a meta-step, a joint step),
-     each rank's peak memory and the gaps.
+     either CLI, 5 x 29 = 145 a rank on the 1x2 step, 1
+     `fused_light_augment` a rank a step. Prints each run's seconds (a
+     meta-step, a joint step), each rank's peak memory and the gaps.
   12. spatial: the image H axis split over ranks
      (mliis_tpu_torch/parallel/spatial.py) at full width: EfficientLab-b0
      rsd=(2, 4) in float32 (dropout 0.5, drop-connect 0.2), 8 synthetic
@@ -147,12 +152,29 @@ its phases, one line each (or a few):
      wall, each rank's peak memory beside the unsharded peak, the
      all-reduces of each run (count, bytes, host seconds inside them) and
      the gaps.
+  13. batched (between `train` and `decoders`): the task axis, each run
+     beside its chained run in this call. The `slice` phase's two bf16
+     meta-steps again through `learners.make_train_step` from the same
+     state and draw seeds (2 x 58 = 116 `full_pass` launches at B=40; the
+     states within 0.1 of the largest change of the slice's); one float32
+     meta-step cut to 6 inner steps, chained and batched from one state
+     and draw (within 1e-5, the CPU test's bound); the `eval` phase's
+     evaluation in chunks of 2 on both routes from the same seed (354
+     `full_pass` launches at B=16, or 708 `cheap_pass`; the mean IoU
+     within 0.02 of the chained run's, where bf16 amplifies the two
+     strategies' rounding, and 0.15 of the JAX package's); the same
+     checkpoint in float32 cut to 10 steps, evaluated chained and batched
+     on both routes (the mean IoUs within 0.005); and the `train` run's
+     CLI with no strategy flag, 1 meta-iter (118
+     launches, derived from the flags). Prints the seconds and peak
+     memory of each beside the chained run's.
 Then the `kernels` JSON line (each kernel's launches on the path it
 carries, and on every path; `ms`, `cold_ms` and `bound_share` at the main
 path's size, every size's beside them), the card's name and power limit
 again, and the result line. Any failed phase exits non-zero, as does a run without a
 card or away from the checkout.
 """
+import contextlib
 import json
 import math
 import os
@@ -160,6 +182,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores
@@ -167,6 +190,32 @@ H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores
 
 def log(*args):
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(record):
+    """PyTorch's and cuDNN's deterministic algorithms for the block, so
+    that an evaluation repeats bit for bit (cuBLAS's take
+    CUBLAS_WORKSPACE_CONFIG, which `main` sets). Without them two runs of
+    the `eval` phase's evaluation differ by up to 0.0038 in mean IoU
+    (experiments/torch_batched_eval_iou.py, PERF.md), so the `batched`
+    phase's gaps between its strategies would move from call to call. An
+    op that has no deterministic form warns; its warning is appended to
+    `record`."""
+    import torch
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+        record.extend(sorted({str(w.message)[:160] for w in caught}))
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        torch.backends.cudnn.deterministic = before[2]
 
 
 def cuda_ms(fn, reps):
@@ -343,11 +392,23 @@ def _shear_line_ops(n):
     return 5 * n * math.log2(n) + 6 * (n // 2 + 1)
 
 
+def _tile_rows(b, *rows):
+    """Each of `rows` (8 fixed rows, batch dim first) repeated to b rows."""
+    return [r.repeat((-(-b // r.shape[0]),) + (1,) * (r.ndim - 1))[:b]
+            .contiguous() for r in rows]
+
+
+def _size_tag(b, h, w):
+    """'224x224' at B=8, the paths' one-task batch; 'B40 224x224' else."""
+    tag = "{}x{}".format(h, w)
+    return tag if b == 8 else "B{} {}".format(b, tag)
+
+
 def _full_pass_at(dev, size, b=8, c_tot=5, drawn=True):
-    """`full_pass` against its plain version at B=8, 5 x size^2: fixed rows
-    that run every op and every rotation mode, then (if `drawn`) rows
-    drawn as the meta path draws them; the times and the bound of the
-    last rows checked."""
+    """`full_pass` against its plain version at B x 5 x size^2: fixed rows
+    that run every op and every rotation mode (8 of them, repeated to B),
+    then (if `drawn`) rows drawn as the meta path draws them; the times
+    and the bound of the last rows checked."""
     import torch
     from mliis_tpu_torch.ops import augment_kernels as ak
     x = _planar_batch(dev, b, size)
@@ -360,6 +421,7 @@ def _full_pass_at(dev, size, b=8, c_tot=5, drawn=True):
     rot = torch.tensor([[0, 0, 0, 0], [30, 0, 0, 0], [-44, 1, 0, 77],
                         [17, 1, 1, 0], [-12, 2, 0, 0], [40, 3, 0, 0],
                         [25, 1, 1, 0], [-33, 1, 0, 200]], **i32)
+    perm, num, rot = _tile_rows(b, perm, num, rot)
     seeds = torch.arange(101, 101 + b, **i32)
     gen = torch.Generator(device=dev).manual_seed(7)
 
@@ -367,7 +429,7 @@ def _full_pass_at(dev, size, b=8, c_tot=5, drawn=True):
         pos = torch.arange(6, device=dev)[None] < num[:, None]
         return ((perm == ak.ROTATE_OP) & pos).any(1)
 
-    tag = "{0}x{0}".format(size)
+    tag = _size_tag(b, size, size)
     rotated = rotated_of(perm, num)
     err = _compare("fixed " + tag, ak.full_pass(seeds, x, perm, num, rot),
                    ak.full_pass_reference(seeds, x, perm, num, rot), rotated)
@@ -409,17 +471,22 @@ def _full_pass_at(dev, size, b=8, c_tot=5, drawn=True):
                 cluster=cs, group=group, smem_bytes=smem)
 
 
-FULL_PASS_SIZES = ((224, True), (320, True), (225, True), (512, False))
+# (size, drawn rows, B): the chained paths' B=8 at 224^2, the JAX CLI's
+# 320^2, an odd 225^2, the largest plane (512^2), and the task axis's B=40
+# (5 tasks x 8) at 224^2.
+FULL_PASS_SIZES = ((224, True, 8), (320, True, 8), (225, True, 8),
+                   (512, False, 8), (224, True, 40))
 
 
 def phase_kernel(dev):
-    """`full_pass` at the meta path's shape (B=8, 5 x 224^2), at the JAX
-    CLI's default image size (5 x 320^2), at an odd 5 x 225^2 and at the
-    largest plane the wrapper takes (5 x 512^2, fixed rows only), all held
-    to the same bars; the entry's times are the meta path's, every size's
-    beside them."""
-    sizes = {"{0}x{0}".format(n): _full_pass_at(dev, n, drawn=drawn)
-             for n, drawn in FULL_PASS_SIZES}
+    """`full_pass` at the chained meta path's shape (B=8, 5 x 224^2), at
+    the JAX CLI's default image size (5 x 320^2), at an odd 5 x 225^2, at
+    the largest plane the wrapper takes (5 x 512^2, fixed rows only) and
+    at the batched meta-step's B=40, all held to the same bars; the
+    entry's times are the chained meta path's, every size's beside
+    them."""
+    sizes = {_size_tag(b, n, n): _full_pass_at(dev, n, b=b, drawn=drawn)
+             for n, drawn, b in FULL_PASS_SIZES}
     entry = dict(sizes["224x224"])
     entry["max_abs_err"] = max(s["max_abs_err"] for s in sizes.values())
     return dict({"name": "full_pass", "route": "cuda",
@@ -466,7 +533,7 @@ def _cheap_rows(dev, b):
                           11, 12, 13, 13], **i32)
     identity = torch.tensor([False] * 4 + [True, True, False, False],
                             device=dev)
-    return seeds[:b], perm[:b], num[:b], window[:b], identity[:b]
+    return _tile_rows(b, seeds, perm, num, window, identity)
 
 
 def _random_planar(dev, b, h, w):
@@ -494,10 +561,11 @@ def _sms(dev):
 
 
 def _cheap_pass_at(dev, h, w, b=8, x=None):
-    """`cheap_pass` against its plain version at B=8, 5 x h x w: the fixed
-    rows, then rows drawn as the split route draws them (both windows);
-    image planes 1e-3 abs on 0..255, mask planes exact. Returns the max
-    error, the drawn rows, the batch and the launch's plan."""
+    """`cheap_pass` against its plain version at B x 5 x h x w: the fixed
+    rows (8, repeated to B), then rows drawn as the split route draws them
+    (both windows); image planes 1e-3 abs on 0..255, mask planes exact.
+    Returns the max error, the drawn rows, the batch and the launch's
+    plan."""
     import torch
     from mliis_tpu_torch.ops import augment_kernels as ak
     if x is None:
@@ -526,29 +594,32 @@ def _cheap_pass_at(dev, h, w, b=8, x=None):
             exact &= bool(torch.equal(out[identity], x[identity]))
             changed = int((out != x).flatten(1).any(1).sum())
     plan = ak.cheap_pass_plan(b, x.shape[1], h, w, _sms(dev))
-    log("kernel[cheap_pass] {}x{}: max abs image {:.3g} (<= 1e-3) | masks "
+    moving = int((~identity).sum())
+    log("kernel[cheap_pass] {}: max abs image {:.3g} (<= 1e-3) | masks "
         "exact, identity rows unchanged {} | fixed rows changed {} of {} "
-        "(expect 6) | {}".format(h, w, err, exact, changed, b,
-                                 _plan_text(plan)))
-    if not (err <= 1e-3 and exact and changed == 6):
+        "(expect {}) | {}".format(_size_tag(b, h, w), err, exact, changed, b,
+                                  moving, _plan_text(plan)))
+    if not (err <= 1e-3 and exact and changed == moving):
         raise AssertionError("cheap_pass disagrees with its plain version")
     return err, (seeds_d[0], perm_d, num_d, windows[0]), x, plan
 
 
-# The split route's 224^2, a non-square 160x224, the JAX CLI's 320^2 and an
-# odd 161x225 (4-byte copies, scalar stores).
-CHEAP_SIZES = ((224, 224), (160, 224), (320, 320), (161, 225))
+# (H, W, B): the split route's 224^2, a non-square 160x224, the JAX CLI's
+# 320^2 and an odd 161x225 (4-byte copies, scalar stores) at B=8, and a
+# batched evaluation chunk's B=16 (2 tasks x 8) at 224^2.
+CHEAP_SIZES = ((224, 224, 8), (160, 224, 8), (320, 320, 8), (161, 225, 8),
+               (224, 224, 16))
 
 
 def phase_cheap_kernel(dev):
-    """`cheap_pass` at B=8 and 5 x CHEAP_SIZES; times the drawn rows' first
-    pass at each size (cold and warm L2) and computes the bound; then rows
-    too wide for shared memory (5 x 3 x 5000, no ring), checked only."""
+    """`cheap_pass` at 5 x CHEAP_SIZES; times the drawn rows' first pass at
+    each size (cold and warm L2) and computes the bound; then rows too
+    wide for shared memory (5 x 3 x 5000, no ring), checked only."""
     from mliis_tpu_torch.ops import augment_kernels as ak
     sizes = {}
     usage = BUILD_USAGE.get("cheap_pass", {})
-    for h, w in CHEAP_SIZES:
-        e, args, x, plan = _cheap_pass_at(dev, h, w)
+    for h, w, b in CHEAP_SIZES:
+        e, args, x, plan = _cheap_pass_at(dev, h, w, b)
         b = x.shape[0]
         applied = ak.cheap_applied(*args[1:])
         noised = int((applied & (args[1] == NOISE_OP)).any(1).sum())
@@ -559,11 +630,12 @@ def phase_cheap_kernel(dev):
                          (x,), bytes_moved, 50)
         plain_ms = cuda_ms(lambda: ak.cheap_pass_reference(
             args[0], x, *args[1:]), 3)
-        log("kernel[cheap_pass] {}x{}: {} plain_ms {:.4f} ({}; {} of {} "
+        log("kernel[cheap_pass] {}: {} plain_ms {:.4f} ({}; {} of {} "
             "samples noised) | {} registers, {} B spilled".format(
-                h, w, _times_text(t, bound_ms), plain_ms, bound_by, noised,
-                b, usage.get("registers"), usage.get("spill_bytes")))
-        sizes["{}x{}".format(h, w)] = dict(
+                _size_tag(b, h, w), _times_text(t, bound_ms), plain_ms,
+                bound_by, noised, b, usage.get("registers"),
+                usage.get("spill_bytes")))
+        sizes[_size_tag(b, h, w)] = dict(
             t, max_abs_err=e, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, bound_share=bound_ms / t["cold_ms"],
             plan=plan._asdict())
@@ -771,6 +843,12 @@ def phase_agree_joint(dev):
         raise AssertionError("the card's joint step disagrees with the CPU's")
 
 
+# The `slice` phase's model, store, configs, initial state, draw seeds,
+# states after each meta-step and seconds, which the `batched` phase runs
+# again on a task axis.
+SLICE = {}
+
+
 def phase_slice(dev):
     import torch
     from mliis_tpu_torch.data.synthetic import make_synthetic_store
@@ -786,25 +864,32 @@ def phase_slice(dev):
                                  image_size=224, seed=0)
     imgs, msks, counts = store.to_torch(dev)
     opt_cfg = il.OptimizerConfig("sgd")
+    loss_cfg = il.LossConfig(dice=True, l2=True)
     cfg = lr.MetaTrainConfig(num_shots=10, inner_batch_size=8,
                              inner_iters=59, meta_batch_size=5, foml=True,
                              tail_shots=5, aug_rate=0.5)
-    step = lr.make_chained_train_step(model, il.LossConfig(dice=True,
-                                                           l2=True),
-                                      opt_cfg, cfg)
+    step = lr.make_chained_train_step(model, loss_cfg, opt_cfg, cfg)
     state = il.init_model_state(model, opt_cfg)
+    SLICE.update(model=model, store=(imgs, msks, counts), cfg=cfg,
+                 opt_cfg=opt_cfg, loss_cfg=loss_cfg, start=state, seeds=[],
+                 states=[], seconds=[])
     start = {k: v.clone() for k, v in state.params.items()}
     gen = torch.Generator(device=dev).manual_seed(1)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
-    seconds = []
+    seconds = SLICE["seconds"]
     for _ in range(2):
         t0 = time.time()
-        draws = lr.draw_meta_step(draw_seed(gen), counts, cfg, n_max=10)
+        seed = draw_seed(gen)
+        draws = lr.draw_meta_step(seed, counts, cfg, n_max=10)
         state = step(state, imgs, msks, draws, 0.1, 5e-4)
         torch.cuda.synchronize()
         seconds.append(time.time() - t0)
+        SLICE["seeds"].append(seed)
+        SLICE["states"].append(state)
     launches = read_launches()
+    SLICE["peak"] = torch.cuda.max_memory_allocated(dev)
     expect = {"full_pass": 2 * 5 * 58, "cheap_pass": 0,
               "fused_light_augment": 0}
     finite = all(bool(v.isfinite().all()) for v in state.params.values())
@@ -813,7 +898,7 @@ def phase_slice(dev):
     log("slice: meta-step seconds {} | launches {} (expect {}) | params "
         "finite {} | sum |d params| {:.4g} | peak memory {:.2f} GB".format(
             ["{:.3f}".format(s) for s in seconds], launches, expect, finite,
-            moved, torch.cuda.max_memory_allocated(dev) / 1e9))
+            moved, SLICE["peak"] / 1e9))
     if launches != expect or not finite or not moved > 0:
         raise AssertionError("the slice did not run as expected")
     return launches
@@ -823,6 +908,11 @@ EVAL_CHECKPOINT = os.path.join("experiments", "curve_v2_r4",
                                "model.ckpt-3000.npz")
 EVAL_TASKS, EVAL_STEPS = 12, 59
 EVAL_IOU_BAR = 0.15
+EVAL_SEED = 9000   # the evaluation generator's seed on both strategies
+# The `eval` phase's model, store, config, the JAX package's IoU and, per
+# route, the chained evaluation's mean IoU and wall, for the `batched`
+# phase.
+EVAL = {}
 
 
 def phase_eval(dev):
@@ -831,7 +921,10 @@ def phase_eval(dev):
     dropout 0.5, meta-trained 3000 steps at 224^2) over its 12 held-out
     tasks (triangle, ring, diamond; seed 777): 5 shots + 5 query, 59 SGD
     steps at batch 8, lr 5e-4, bce_dice + l2, aug rate 0.5, transductive,
-    one sample; once on the fused route and once on the split route. Each
+    one sample, the tasks one after another (`chain_chunk`; the `batched`
+    phase runs them on a task axis), with deterministic algorithms
+    (`deterministic_algorithms`); once on the fused route and once on
+    the split route. Each
     route's mean IoU must lie within 0.15 of the JAX package's, and the
     kernels must be launched exactly once (fused) or twice (split) a step.
     Returns {"eval_fused": launches, "eval_split": launches}."""
@@ -858,22 +951,26 @@ def phase_eval(dev):
     opt_cfg = il.OptimizerConfig("sgd")
     cfg = ev.EvalConfig(num_shots=5, test_shots=5, inner_batch_size=8,
                         inner_iters=EVAL_STEPS, transductive=True,
-                        augment=True)
+                        augment=True, chain_chunk=True)
     evaluator = ev.GeckoEvaluator(model, il.LossConfig(dice=True, l2=True),
                                   opt_cfg, cfg, store, device=dev)
+    EVAL.update(model=model, store=store, cfg=cfg, jax_iou=jax_iou)
     state = il.init_model_state(model, opt_cfg)
-    counts, failed = {}, []
+    EVAL["state"] = state
+    counts, failed, nondeterministic = {}, [], []
     try:
         for route, fused in (("fused", True), ("split", False)):
             taug.PALLAS_FUSED_SINGLE_LAUNCH = fused
-            gen = torch.Generator(device=dev).manual_seed(9000)
+            gen = torch.Generator(device=dev).manual_seed(EVAL_SEED)
             torch.cuda.synchronize()
             reset_launches()
             t0 = time.time()
-            mean_iou, task_map = ev.evaluate_gecko(
-                evaluator, state, gen, 5e-4, num_samples=1,
-                serially_eval_all_tasks=True, aug_rate=0.5,
-                log_fn=lambda line: log("eval[{}]: {}".format(route, line)))
+            with deterministic_algorithms(nondeterministic):
+                mean_iou, task_map = ev.evaluate_gecko(
+                    evaluator, state, gen, 5e-4, num_samples=1,
+                    serially_eval_all_tasks=True, aug_rate=0.5,
+                    log_fn=lambda line: log("eval[{}]: {}".format(route,
+                                                                  line)))
             torch.cuda.synchronize()
             wall = time.time() - t0
             launches = read_launches()
@@ -883,6 +980,8 @@ def phase_eval(dev):
             expect = {"full_pass": steps if fused else 0,
                       "cheap_pass": 0 if fused else 2 * steps,
                       "fused_light_augment": 0}
+            EVAL[route] = {"iou": mean_iou, "wall": wall,
+                           "task_ious": ["{:.3f}".format(v) for v in ious]}
             log("eval[{}]: {} tasks | mean IoU {:.4f} +/- {:.4f} (95% CI; "
                 "the JAX package's {:.4f}, bar {}) | wall {:.2f} s, {:.3f} s "
                 "a task | launches {} (expect {}) | task IoUs {}".format(
@@ -894,7 +993,8 @@ def phase_eval(dev):
                 failed.append(route)
     finally:
         taug.PALLAS_FUSED_SINGLE_LAUNCH = True
-    log("eval: held-out store built in {:.2f} s".format(store_s))
+    log("eval: held-out store built in {:.2f} s | deterministic algorithms,"
+        " ops without one: {}".format(store_s, nondeterministic or "none"))
     if failed:
         raise AssertionError("the evaluation did not run as expected on "
                              "the {} route".format(" and ".join(failed)))
@@ -1058,6 +1158,11 @@ def _run_cli(argv, dev, cwd=None):
             torch.cuda.max_memory_allocated(dev))
 
 
+# The `train` run's phase timings, wall and peak (chained), for the
+# `batched` phase's CLI run.
+TRAIN = {}
+
+
 def phase_train(dev):
     """The meta-training CLI, `mliis_tpu_torch.cli.run_metasegnet.main`, at
     full width with run.sh's flags on 8 synthetic tasks (6 train, 2 test):
@@ -1095,6 +1200,7 @@ def phase_train(dev):
             args, args.synthetic_tasks - n_test, n_test)
         with open(os.path.join(ckpt_dir, "phase_timings.jsonl")) as f:
             timings = json.loads(f.readline())
+        TRAIN.update(timings=timings, wall=wall, peak=peak)
         init = EfficientLab(**args_lib.model_kwargs(args))
         init.reset_parameters(torch.Generator().manual_seed(args.seed))
         start = dict(init.named_parameters())
@@ -1189,6 +1295,298 @@ def phase_train(dev):
         shutil.rmtree(workdir, ignore_errors=True)
     if failed:
         raise AssertionError("the training CLI did not run as expected: "
+                             "{}".format(", ".join(failed)))
+    return counts
+
+
+# The `batched` phase: the meta-batch and the evaluation chunks on a task
+# axis (`learners.make_train_step`, `evaluate.make_eval_chunk_fn` without
+# `chain_chunk`), against the chained runs of the `slice`, `eval` and
+# `train` phases in the same call.
+BATCHED_CHUNK = 2          # evaluation tasks on the task axis at a time
+BATCHED_F32_STEPS = 6      # the float32 meta-step's depth (run.sh: 59)
+BATCHED_F32_EVAL_STEPS = 10  # the float32 evaluations' depth (run.sh: 59)
+# Bars. The float32 meta-step: the CPU test's bound
+# (tests/test_torch_task_axis.py
+# `test_task_axis_steps_equal_chained_step_with_every_draw_on`: 1e-5 abs;
+# measured 2.8e-7 there). bf16 rounds a grouped conv's sums differently
+# from a plain one's, and 59 dependent bf16 steps amplify that: the bf16
+# meta-steps are held loosely, on the largest gap as a share of the
+# largest change; the bf16 evaluations' mean IoU within 0.02 of the
+# chained one's (measured with deterministic algorithms, each reproducible
+# bit for bit: +0.0027 fused, +0.0072 split; per task up to 0.055; the
+# chained evaluation alone moves 0.0038 between two runs without them,
+# experiments/torch_batched_eval_iou.py). The float32 evaluations, chained
+# and batched, agree within 0.005 in mean IoU.
+BATCHED_F32_BAR, BATCHED_BF16_BAR = 1e-5, 0.1
+BATCHED_BF16_IOU_BAR, BATCHED_IOU_BAR = 0.02, 0.005
+
+
+def _expected_batched_launches(args, n_train, n_test):
+    """`full_pass` launches of a training run of the CLI on a task axis:
+    one an inner step for the meta-batch (for each task group with
+    --task_group_size), and one an evaluation step for each chunk of
+    --task_chunk_size tasks. Returns (total, its terms as text)."""
+    groups = (-(-args.meta_batch // args.task_group_size)
+              if args.task_group_size else 1)
+    c = args.task_chunk_size
+
+    def chunks(n):
+        return -(-n // c)
+    meta = args.meta_iters * groups * (args.inner_iters - 1)
+    intervals = len(range(0, args.meta_iters, args.eval_interval))
+    interval = intervals * (chunks(min(100, n_train))
+                            + chunks(min(100, n_test))) * args.eval_iters
+    final = args.eval_samples * (chunks(1) + chunks(n_test)) \
+        * args.eval_iters
+    return meta + interval + final, (
+        "{} x {} x {} + {} x ({} + {}) x {} + {} x ({} + {}) x {}".format(
+            args.meta_iters, groups, args.inner_iters - 1, intervals,
+            chunks(min(100, n_train)), chunks(min(100, n_test)),
+            args.eval_iters, args.eval_samples, chunks(1), chunks(n_test),
+            args.eval_iters))
+
+
+def phase_batched(dev):
+    """The task axis on the card, each run beside its chained counterpart
+    from this call:
+    1. the `slice` phase's two bf16 FOMAML* meta-steps again through
+       `learners.make_train_step` from the same state and draw seeds: one
+       `full_pass` launch at B = 5 x 8 = 40 an inner step, 2 x 58 = 116 in
+       all, against the slice's 580; the states after each step held to
+       the slice's within BATCHED_BF16_BAR of the largest change;
+    2. the same model in float32 cut to BATCHED_F32_STEPS inner steps
+       (5 tasks at batch 8, 224^2), one meta-step chained and one batched
+       from the same state and draws: every param and running stat within
+       BATCHED_F32_BAR;
+    3. the `eval` phase's evaluation (12 held-out tasks of the committed
+       checkpoint, 59 steps) in chunks of 2 on the fused and the split
+       route, from the same evaluation seed: 12 / 2 x 59 = 354 `full_pass`
+       launches at B=16, or 2 x 354 = 708 `cheap_pass` launches; the mean
+       IoU within BATCHED_BF16_IOU_BAR of the chained evaluation's and
+       within EVAL_IOU_BAR of the JAX package's; then the checkpoint in
+       float32 cut to BATCHED_F32_EVAL_STEPS steps, evaluated chained and
+       batched on both routes: the mean IoUs within BATCHED_IOU_BAR; every
+       evaluation with deterministic algorithms;
+    4. the `train` run's CLI with no strategy flag (the meta-batch and the
+       evaluation chunks of --task_chunk_size 2 on a task axis), cut to 1
+       meta-iter: exact launches, derived from the flags.
+    Prints each run's seconds and peak memory beside the chained run's.
+    Returns {path: launches}."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from mliis_tpu_torch.cli import args as args_lib
+    from mliis_tpu_torch.meta import evaluate as ev
+    from mliis_tpu_torch.meta import inner_loop as il
+    from mliis_tpu_torch.meta import learners as lr
+    from mliis_tpu_torch.models.efficientlab import EfficientLab
+    from mliis_tpu_torch.ops import augment as taug
+    from mliis_tpu_torch.utils.checkpoint import load_jax_npz
+    t_phase = time.time()
+    counts, failed = {}, []
+
+    def check(path, launches, full_pass, ok, text, cheap=0):
+        expect = {"full_pass": full_pass, "cheap_pass": cheap,
+                  "fused_light_augment": 0}
+        counts[path] = launches
+        log("batched[{}]: {} | launches {} (expect {})".format(
+            path, text, launches, expect))
+        if launches != expect or not ok:
+            failed.append(path)
+
+    model, (imgs, msks, mcounts) = SLICE["model"], SLICE["store"]
+    cfg, opt_cfg, loss_cfg = SLICE["cfg"], SLICE["opt_cfg"], SLICE["loss_cfg"]
+    start = _cpu_state(SLICE["start"])
+    step = lr.make_train_step(model, loss_cfg, opt_cfg, cfg)
+    state, seconds, gaps = SLICE["start"], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    for i, seed in enumerate(SLICE["seeds"]):
+        t0 = time.time()
+        draws = lr.draw_meta_step(seed, mcounts, cfg, n_max=10)
+        state = step(state, imgs, msks, draws, 0.1, 5e-4)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+        gaps.append(_state_gap(_cpu_state(state),
+                               _cpu_state(SLICE["states"][i]), start))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    finite = all(bool(v.isfinite().all()) for v in state.params.values())
+    check("batched_step", launches, 2 * 58,
+          finite and max(g[1] for g in gaps) <= BATCHED_BF16_BAR,
+          "2 bf16 FOMAML* meta-steps on a task axis (5 tasks x 59 steps at "
+          "batch 8, 224^2) | seconds {} (chained, slice: {}) | peak memory "
+          "{:.2f} GB (chained: {:.2f}) | largest gap to the chained states "
+          "{} ({} of the largest change; bar {}) | params finite {}".format(
+              ["{:.3f}".format(v) for v in seconds],
+              ["{:.3f}".format(v) for v in SLICE["seconds"]], peak / 1e9,
+              SLICE["peak"] / 1e9, ["{:.3g}".format(g[0]) for g in gaps],
+              ["{:.3g}".format(g[1]) for g in gaps], BATCHED_BF16_BAR,
+              finite))
+    del state
+
+    f32 = EfficientLab(rsd=(2, 4), final_layer_dropout_rate=0.5)
+    f32.load_state_dict(model.state_dict())
+    f32.to(dev)
+    cfg_f32 = dataclasses.replace(cfg, inner_iters=BATCHED_F32_STEPS)
+    state0 = il.init_model_state(f32, opt_cfg)
+    f32_start, outs, walls = _cpu_state(state0), {}, {}
+    for name, make in (("chained", lr.make_chained_train_step),
+                       ("batched", lr.make_train_step)):
+        draws = lr.draw_meta_step(SLICE["seeds"][0], mcounts, cfg_f32, 10)
+        run = make(f32, loss_cfg, opt_cfg, cfg_f32)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        outs[name] = _cpu_state(run(state0, imgs, msks, draws, 0.1, 5e-4))
+        torch.cuda.synchronize()
+        walls[name] = time.time() - t0
+        counts["batched_f32_" + name] = read_launches()
+    gap = _state_gap(outs["batched"], outs["chained"], f32_start)
+    per_step = BATCHED_F32_STEPS - 1
+    check("batched_f32", counts["batched_f32_batched"], per_step,
+          gap[0] <= BATCHED_F32_BAR and counts["batched_f32_chained"][
+              "full_pass"] == 5 * per_step,
+          "float32 FOMAML* meta-step of {} inner steps, batched against "
+          "chained from the same state and draws | seconds {:.3f} (chained "
+          "{:.3f}, {} launches) | largest gap {:.3g} (bar {}; {:.3g} of the "
+          "largest change)".format(BATCHED_F32_STEPS, walls["batched"],
+                                   walls["chained"],
+                                   counts["batched_f32_chained"]["full_pass"],
+                                   gap[0], BATCHED_F32_BAR, gap[1]))
+    del f32, outs
+
+    def evaluate(evaluator, state, route):
+        """(mean IoU, task IoUs, wall) of one deterministic evaluation of
+        the held-out tasks on `route`, from the `eval` phase's seed."""
+        taug.PALLAS_FUSED_SINGLE_LAUNCH = route == "fused"
+        gen = torch.Generator(device=dev).manual_seed(EVAL_SEED)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with deterministic_algorithms(nondeterministic):
+            mean_iou, task_map = ev.evaluate_gecko(
+                evaluator, state, gen, 5e-4, num_samples=1,
+                serially_eval_all_tasks=True, aug_rate=0.5,
+                log_fn=lambda line: None)
+        torch.cuda.synchronize()
+        return (mean_iou, ["{:.3f}".format(v[0]) for v in task_map.values()],
+                time.time() - t0)
+
+    loss_eval = il.LossConfig(dice=True, l2=True)
+    ecfg = dataclasses.replace(EVAL["cfg"], chain_chunk=False,
+                               task_chunk_size=BATCHED_CHUNK)
+    evaluator = ev.GeckoEvaluator(EVAL["model"], loss_eval, opt_cfg, ecfg,
+                                  EVAL["store"], device=dev)
+    chunks = -(-EVAL_TASKS // BATCHED_CHUNK)
+    nondeterministic = []
+    try:
+        for route in ("fused", "split"):
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches()
+            mean_iou, task_ious, wall = evaluate(evaluator, EVAL["state"],
+                                                 route)
+            chained = EVAL[route]
+            steps = chunks * EVAL_STEPS
+            check("batched_eval_" + route, read_launches(),
+                  steps if route == "fused" else 0,
+                  abs(mean_iou - chained["iou"]) <= BATCHED_BF16_IOU_BAR
+                  and abs(mean_iou - EVAL["jax_iou"]) <= EVAL_IOU_BAR,
+                  "bf16, {} tasks in chunks of {} on the {} route | mean "
+                  "IoU {:.4f} (chained: {:.4f}, gap {:+.4f}, bar {}; the "
+                  "JAX package's {:.4f}, bar {}) | wall {:.2f} s, {:.3f} s "
+                  "a task (chained: {:.3f}) | peak memory {:.2f} GB | task "
+                  "IoUs {} (chained: {})".format(
+                      EVAL_TASKS, BATCHED_CHUNK, route, mean_iou,
+                      chained["iou"], mean_iou - chained["iou"],
+                      BATCHED_BF16_IOU_BAR, EVAL["jax_iou"], EVAL_IOU_BAR,
+                      wall, wall / EVAL_TASKS, chained["wall"] / EVAL_TASKS,
+                      torch.cuda.max_memory_allocated(dev) / 1e9, task_ious,
+                      chained["task_ious"]),
+                  cheap=0 if route == "fused" else 2 * steps)
+        del evaluator
+
+        f32 = EfficientLab(rsd=(2, 4), final_layer_dropout_rate=0.5)
+        f32.load_state_dict(load_jax_npz(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), EVAL_CHECKPOINT)))
+        f32_state = il.init_model_state(f32, opt_cfg)
+        fcfg = dataclasses.replace(ecfg, inner_iters=BATCHED_F32_EVAL_STEPS)
+        evaluators = {chain: ev.GeckoEvaluator(
+            f32, loss_eval, opt_cfg,
+            dataclasses.replace(fcfg, chain_chunk=chain), EVAL["store"],
+            device=dev) for chain in (True, False)}
+        for route in ("fused", "split"):
+            runs = {}
+            for chain in (True, False):
+                reset_launches()
+                runs[chain] = evaluate(evaluators[chain], f32_state,
+                                       route) + (read_launches(),)
+            steps = chunks * BATCHED_F32_EVAL_STEPS
+            counts["batched_eval_f32_chained_" + route] = runs[True][3]
+            gap = runs[False][0] - runs[True][0]
+            ok = runs[True][3]["full_pass" if route == "fused"
+                               else "cheap_pass"] == (
+                EVAL_TASKS * BATCHED_F32_EVAL_STEPS
+                * (1 if route == "fused" else 2))
+            check("batched_eval_f32_" + route, runs[False][3],
+                  steps if route == "fused" else 0,
+                  ok and abs(gap) <= BATCHED_IOU_BAR,
+                  "float32, {} steps, {} tasks in chunks of {} on the {} "
+                  "route against the chained evaluation | mean IoU {:.4f} "
+                  "(chained: {:.4f}, gap {:+.5f}, bar {}) | wall {:.2f} s "
+                  "(chained: {:.2f}; {} launches) | task IoUs {} (chained: "
+                  "{})".format(
+                      BATCHED_F32_EVAL_STEPS, EVAL_TASKS, BATCHED_CHUNK,
+                      route, runs[False][0], runs[True][0], gap,
+                      BATCHED_IOU_BAR, runs[False][2], runs[True][2],
+                      runs[True][3], runs[False][1], runs[True][1]),
+                  cheap=0 if route == "fused" else 2 * steps)
+        del f32, evaluators
+    finally:
+        taug.PALLAS_FUSED_SINGLE_LAUNCH = True
+    log("batched: the evaluations ran with deterministic algorithms; ops "
+        "without one: {}".format(nondeterministic or "none"))
+
+    workdir = tempfile.mkdtemp(prefix="batched_smoke_")
+    try:
+        argv = [a for a in TRAIN_ARGV
+                if a not in ("--chain_tasks", "--chain_eval_chunk")]
+        cut = argv.index("--task_chunk_size")
+        argv = argv[:cut] + argv[cut + 2:] + [
+            "--meta-iters", "1", "--checkpoint", workdir]
+        args = args_lib.argument_parser().parse_args(argv)
+        n_test = max(args.synthetic_tasks // 4, 1)
+        expect, terms = _expected_batched_launches(
+            args, args.synthetic_tasks - n_test, n_test)
+        state, out, launches, wall, peak = _run_cli(argv, dev)
+        with open(os.path.join(workdir, "phase_timings.jsonl")) as f:
+            timings = json.loads(f.readline())
+        finite = all(bool(v.isfinite().all()) for v in state.params.values())
+        iou = _mean_iou(out)
+        chained = TRAIN["timings"]
+        check("batched_cli", launches, expect,
+              finite and math.isfinite(iou),
+              "run_metasegnet with no strategy flag (task axis; evaluation "
+              "chunks of {}), 1 meta-iter | wall {:.2f} s | {:.3f} s a "
+              "meta-step (chained, `train`: {:.3f}) | interval evaluation "
+              "{:.2f} s (chained: {:.2f}) | mean IoU {:.4f} | peak memory "
+              "{:.2f} GB (chained: {:.2f}) | expected launches {} = "
+              "{}".format(
+                  args.task_chunk_size, wall,
+                  timings["meta_step"]["mean_s"],
+                  chained["meta_step"]["mean_s"],
+                  timings["eval_train"]["total_s"]
+                  + timings["eval_test"]["total_s"],
+                  chained["eval_train"]["total_s"]
+                  + chained["eval_test"]["total_s"],
+                  iou, peak / 1e9, TRAIN["peak"] / 1e9, expect, terms))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log("batched: the phase's wall {:.2f} s".format(time.time() - t_phase))
+    if failed:
+        raise AssertionError("the task axis did not run as expected: "
                              "{}".format(", ".join(failed)))
     return counts
 
@@ -1409,6 +1807,9 @@ def phase_decoders(dev):
 # 5 x 59 steps).
 MESH_CUT = ["--meta-iters", "1"]
 MESH_STEP_SEED = 1234      # the library meta-steps' draw seed
+# The library meta-steps' depth: 30 inner steps a task (run.sh: 59), cut
+# to keep chip_smoke.py near 600 s beside the `batched` phase.
+MESH_STEP_ITERS = 30
 MESH_JOINT_STEPS, MESH_JOINT_BATCH = 2, 64
 MESH_RANKS = 2
 # Bars on the largest difference of a state from the unsharded one, as a
@@ -1440,8 +1841,8 @@ def _mesh_meta_setup(dev, bn_axis_name=None):
         num_tasks=8, examples_per_task=10, image_size=224,
         seed=0).to_torch(dev)
     cfg = lr.MetaTrainConfig(num_shots=10, inner_batch_size=8,
-                             inner_iters=59, meta_batch_size=5, foml=True,
-                             tail_shots=5, aug_rate=0.5)
+                             inner_iters=MESH_STEP_ITERS, meta_batch_size=5,
+                             foml=True, tail_shots=5, aug_rate=0.5)
     state = il.init_model_state(model, il.OptimizerConfig("sgd"))
     return model, (imgs, msks, counts), cfg, state
 
@@ -1690,7 +2091,8 @@ def phase_mesh(dev):
                   backend_w1.group(1) if backend_w1 else None, wall,
                   t_w1["meta_step"]["mean_s"], iou_w1, peak / 1e9, terms))
 
-        step_expect = {"full_pass": 5 * 58, "cheap_pass": 0,
+        step_expect = {"full_pass": 5 * (MESH_STEP_ITERS - 1),
+                       "cheap_pass": 0,
                        "fused_light_augment": 0}
         model, (imgs, msks, mcounts), cfg, state = _mesh_meta_setup(dev)
         start = _cpu_state(state)
@@ -1720,7 +2122,7 @@ def phase_mesh(dev):
         with mesh_lib.world(1, dev, workdir, log_fn=log):
             library_step("w1", mesh_lib.make_sharded_train_step(
                 model, LossConfig(), OptimizerConfig("sgd"), cfg,
-                mesh_lib.make_task_mesh(1, dev)),
+                mesh_lib.make_task_mesh(1, dev), chain_local=True),
                 "make_sharded_train_step, task mesh of 1 on NCCL")
         del model, state, imgs, msks
         torch.cuda.empty_cache()
@@ -1776,10 +2178,12 @@ def phase_mesh(dev):
         s12 = ranks[0]["step_1x2"]
         gap = _state_gap(states["step_1x2"], refs["unsharded"], start)
         check("mesh_step_1x2", s12["launches"],
-              {"full_pass": MESH_RANKS * 5 * 58, "cheap_pass": 0,
+              {"full_pass": MESH_RANKS * 5 * (MESH_STEP_ITERS - 1),
+               "cheap_pass": 0,
                "fused_light_augment": 0},
               gap[1] <= MESH_DATA_BAR and all(
-                  r["step_1x2"]["rank_launches"]["full_pass"] == 5 * 58
+                  r["step_1x2"]["rank_launches"]["full_pass"]
+                  == 5 * (MESH_STEP_ITERS - 1)
                   for r in ranks),
               "1x2 (task, data) meta-step, sync-BN | wall {} s (unsharded "
               "{:.3f}, task mesh of 1 {:.3f}) | largest gap to the "
@@ -2111,6 +2515,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    # cuBLAS's deterministic workspace, for `deterministic_algorithms`; set
+    # before the first product makes its handle.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isfile(os.path.join(root, "mliis_tpu_torch", "csrc",
                                        "full_pass.cu")):
@@ -2134,6 +2541,7 @@ def main() -> int:
     by_path.update(phase_eval(dev))
     by_path["joint"] = phase_joint(dev)
     by_path.update(phase_train(dev))
+    by_path.update(phase_batched(dev))
     by_path.update(phase_decoders(dev))
     by_path.update(phase_mesh(dev))
     by_path.update(phase_spatial(dev))

@@ -14,8 +14,13 @@ activities). Prints one JSON line and then the top kernels:
   - full_pass launches in the profiled step;
   - the card's name and power limit (nvidia-smi).
 
+With `--batched` the meta-step runs on a task axis
+(`learners.make_train_step`: the 5 tasks together, one `full_pass` launch
+at B=40 an inner step), and the profiled window is a whole batched
+meta-step (it makes about as many host events as one chained task).
+
 Usage, from the root of a checkout on a machine with the card:
-  python3 experiments/torch_meta_step_profile.py
+  python3 experiments/torch_meta_step_profile.py [--batched]
 """
 import json
 import os
@@ -41,6 +46,7 @@ def main():
     from mliis_tpu_torch.models.efficientlab import EfficientLab
     from mliis_tpu_torch.ops import augment_kernels as ak
 
+    batched = "--batched" in sys.argv[1:]
     dev = resolve_device()
     model = EfficientLab(rsd=(2, 4), final_layer_dropout_rate=0.5,
                          compute_dtype=torch.bfloat16)
@@ -60,6 +66,9 @@ def main():
     one_cfg = dataclasses.replace(cfg, meta_batch_size=1)
     one_step = lr.make_chained_train_step(model, il.LossConfig(), opt_cfg,
                                           one_cfg)
+    if batched:   # the profiled window: a whole batched meta-step
+        step = lr.make_train_step(model, il.LossConfig(), opt_cfg, cfg)
+        one_cfg, one_step = cfg, step
 
     def meta_step(state, cfg=cfg, step=step):
         draws = lr.draw_meta_step(draw_seed(gen), counts, cfg, n_max=10)
@@ -95,7 +104,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(json.dumps({
-        "card": smi, "meta_step_s": wall_meta, "one_task_step_s": wall,
+        "card": smi, "strategy": "batched" if batched else "chained",
+        "meta_step_s": wall_meta, "one_task_step_s": wall,
         "device_kernel_ms": device_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / (wall * 1e3)),
         "full_pass_ms": full_pass_ms,

@@ -9,10 +9,16 @@ configs: `model_kwargs`, `pallas_augment_mode`, `loss_config`,
 `--rng_impl rbg` is parsed and then refused by `check_ported`: the port
 draws with torch's Philox generators. `--mesh_tasks N` and `--mesh_data M`
 shard the meta-training and evaluation over N x M ranks, one process a
-rank under `torchrun --nproc_per_node` (parallel/mesh.py). The JAX
-package's execution-strategy flags (`--chain_tasks`, `--chain_eval_chunk`,
-`--task_chunk_size`, `--task_group_size`) are accepted and change no
-result: the port runs tasks one after another.
+rank under `torchrun --nproc_per_node` (parallel/mesh.py). The
+execution-strategy flags select what they select in the JAX package:
+with none of them the meta-batch runs on a task axis
+(`learners.make_train_step`), `--task_group_size g` runs it in task
+groups of g (`make_microbatched_train_step`), `--chain_tasks` one task
+after another (`make_chained_train_step`; with `--mesh_tasks`, each
+rank's slots), and the evaluations run `--task_chunk_size` tasks at a
+time on a task axis, or one after another with `--chain_eval_chunk`.
+The strategies make the same draws and compute the same function, up to
+float rounding.
 """
 import argparse
 
@@ -146,8 +152,9 @@ def argument_parser():
              'tests / environments without the dataset).')
     add('--synthetic_tasks', type=int, default=16)
     add('--task_chunk_size', type=int, default=2,
-        help='Accepted for compatibility; no effect (the port runs '
-             'evaluation tasks one after another).')
+        help='Evaluation tasks adapted and predicted together on a task '
+             'axis (one augmentation launch and one forward and backward '
+             'an inner step for the chunk).')
     add('--pallas_augment', choices=['auto', 'on', 'off'], default='auto',
         help='auto and on: the augmentation kernels (full_pass, or '
              'cheap_pass on the split route); off: their plain PyTorch '
@@ -156,15 +163,16 @@ def argument_parser():
         help='Augment every inner step\'s batch (bf16-staged) before the '
              'adaptation loop instead of inside each step.')
     add('--task_group_size', type=int, default=0,
-        help='Accepted for compatibility; no effect (the port runs the '
-             'meta-batch one task after another).')
+        help='Run the meta-batch in groups of this many tasks, each group '
+             'on a task axis, combined with task-count weights (0: the '
+             'whole meta-batch on one task axis).')
     add('--chain_tasks', action='store_true',
-        help='Accepted for compatibility; no effect (the port always '
-             'chains the meta-batch\'s tasks; the JAX package\'s chained '
-             'and vmapped steps make the same draws).')
+        help='Run the meta-batch\'s tasks one after another (one task\'s '
+             'activations at a time); with --mesh_tasks, each rank\'s '
+             'slots.')
     add('--chain_eval_chunk', action='store_true',
-        help='Accepted for compatibility; no effect (evaluation tasks run '
-             'one after another).')
+        help='Run each evaluation chunk\'s tasks one after another instead '
+             'of on a task axis.')
     add('--mesh_tasks', type=int, default=0,
         help='Shard the meta-batch and the evaluations\' tasks over this '
              'many ranks along a "task" mesh axis: one process a rank, '
@@ -266,6 +274,9 @@ def train_loop_config(args) -> TrainLoopConfig:
         lr=args.learning_rate,
         transductive=args.transductive,
         aug_rate=args.aug_rate,
+        task_group_size=args.task_group_size or None,
+        chain_tasks=args.chain_tasks,
+        chain_eval_chunk=args.chain_eval_chunk,
         mesh_tasks=args.mesh_tasks,
         mesh_data=args.mesh_data)
 
@@ -289,4 +300,6 @@ def eval_config(args, inner_iters=None, inner_batch=None) -> EvalConfig:
         lr_scheduler=args.learning_rate_scheduler,
         lr_decay_rate=args.step_decay_rate,
         lr_decay_after_n_steps=args.decay_after_n_steps,
-        use_batch_stats_at_predict=args.use_batch_stats_at_predict)
+        use_batch_stats_at_predict=args.use_batch_stats_at_predict,
+        task_chunk_size=args.task_chunk_size,
+        chain_chunk=args.chain_eval_chunk)

@@ -21,7 +21,12 @@ fine-tuned checkpoints (`--save_fine_tuned_checkpoints_train` on the train
 set, `--save_fine_tuned_checkpoints` on the test set, both under
 `--save_fine_tuned_checkpoints_dir`), and `--export_serving_artifact` is
 written after the results JSON. `--rng_impl rbg` raises
-NotImplementedError (`args.check_ported`).
+NotImplementedError (`args.check_ported`). The meta-step and the
+evaluations follow the execution-strategy flags as the JAX CLI does
+(`meta/train.train_gecko`, `cli/args.py`): by default the meta-batch and
+each evaluation chunk of `--task_chunk_size` tasks run on a task axis;
+`--task_group_size`, `--chain_tasks` and `--chain_eval_chunk` select the
+task groups and the chained forms.
 
 `--mesh_tasks N` (and `--mesh_data M`) run the protocol on N x M ranks,
 one process a rank, as the JAX driver runs it on N x M devices
@@ -175,7 +180,7 @@ def _main_impl(args, dev, start_time, mesh):
             model, state, train_store, val_store or test_store,
             args.checkpoint, loss_cfg, opt_cfg,
             args_lib.meta_train_config(args), args_lib.train_loop_config(args),
-            generator, device=dev)
+            generator, device=dev, eval_task_chunk_size=args.task_chunk_size)
     elif args.do_not_restore_final_layer_weights:
         print("Restoring from checkpoint (without final layer): {}".format(
             args.checkpoint))
@@ -197,7 +202,8 @@ def _main_impl(args, dev, start_time, mesh):
             replacement=args.replacement, augment=args.augment,
             weight_decay_rate=args.weight_decay,
             pallas_augment=args_lib.pallas_augment_mode(args), device=dev,
-            mesh=mesh)
+            mesh=mesh, task_chunk_size=args.task_chunk_size,
+            chain_chunk=args.chain_eval_chunk)
         estimated_lr, estimated_steps = optimize_update_hyperparams(
             es_eval, state, generator, min_steps=args.min_steps,
             max_steps=args.max_steps,
@@ -242,7 +248,8 @@ def _main_impl(args, dev, start_time, mesh):
                 os.path.join(args.checkpoint,
                              "fine-tuned_on_train_val_with_optimized_"
                              "update_hyperparams"),
-                loss_cfg, opt_cfg, ft_meta, ft_loop, generator, device=dev)
+                loss_cfg, opt_cfg, ft_meta, ft_loop, generator, device=dev,
+                eval_task_chunk_size=args.task_chunk_size)
 
     lr = eval_lr if eval_lr is not None else args.learning_rate
     if args.run_k_shot_learning_curves_experiment:

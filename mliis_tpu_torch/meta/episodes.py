@@ -16,11 +16,11 @@ from that seed and s (`slot_generator`). The draws of a slot are then the
 same whichever rank of a mesh runs it and whatever else runs beside it.
 """
 import zlib
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-from mliis_tpu_torch.ops.augment import augment_batch
+from mliis_tpu_torch.ops.augment import augment_batch, augment_batches
 
 
 _M64 = (1 << 64) - 1
@@ -169,3 +169,30 @@ def assemble_batch(support_images_u8: torch.Tensor,
     prob_original = None if aug_rate is None else 1.0 - aug_rate
     return augment_batch(generator, images, masks, prob_original, kernels,
                          key_offset=key_offset, key_total=key_total)
+
+
+def gather_tasks(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row idx[t, j] of task t's x[t]: x [T, S, ...], idx [T, B] ->
+    [T, B, ...]."""
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[rows, idx]
+
+
+def assemble_batches(support_images_u8: torch.Tensor,
+                     support_masks_u8: torch.Tensor, idx: torch.Tensor,
+                     generators: Optional[Sequence[torch.Generator]] = None,
+                     aug_rate: Optional[float] = None, augment: bool = True,
+                     kernels: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`assemble_batch` of T tasks at once: support_images_u8 [T, S, H,
+    W, 3], support_masks_u8 [T, S, H, W], idx [T, B]; task t's batch
+    gathered from its own support set and augmented with draws from
+    generators[t], all T batches in one pass (`augment.augment_batches`).
+    Returns images [T, B, H, W, 3] and one-hot masks [T, B, H, W, 2]."""
+    images = gather_tasks(support_images_u8, idx).float()
+    masks = onehot_mask(gather_tasks(support_masks_u8, idx))
+    if not augment:
+        return images, masks
+    prob_original = None if aug_rate is None else 1.0 - aug_rate
+    return augment_batches(generators, images, masks, prob_original,
+                           kernels)

@@ -9,12 +9,17 @@ set -> per-image hard IoU -> nanmean. Every task starts from the state the
 caller gives, which is never changed: `adapt` loads it into the module and
 returns a new snapshot.
 
-Tasks run one after another (the JAX package's `chain_chunk` semantics);
-the padded duplicate tasks the JAX package computes and discards to keep
-one compiled shape have no counterpart, and neither do its chunk sizes.
-The draws of an episode (shots, split, batch index matrix) are made by
-`draw_episode` and passed in, as `learners.draw_meta_step` does for a
-meta-step, so a test can inject the indices the JAX key discipline yields.
+Tasks run in chunks of `task_chunk_size` on a task axis (the JAX
+package's vmapped chunk, its default; `make_batched_adapt_and_predict_fn`:
+one `full_pass` launch an inner step for the chunk's tasks, one forward
+and backward), or, with `chain_chunk`, one after another. A ragged last
+chunk runs at its own size: the duplicates of the last task the JAX
+package pads it with to keep one compiled shape have no counterpart.
+Both ways a task draws the same from its own generator, so they give the
+same IoUs up to float rounding. The draws of an episode (shots, split,
+batch index matrix) are made by `draw_episode` and passed in, as
+`learners.draw_meta_step` does for a meta-step, so a test can inject the
+indices the JAX key discipline yields.
 The streams are slot-indexed: an evaluation of a list of tasks draws one
 seed from the caller's generator, and the list's task j draws its episode
 and everything inside it (augmentation, dropout, drop-connect) from its own
@@ -55,7 +60,9 @@ from mliis_tpu_torch.device import resolve_device
 from mliis_tpu_torch.meta import episodes
 from mliis_tpu_torch.meta.inner_loop import (LossConfig, ModelState,
                                              OptimizerConfig, make_adapt_fn,
-                                             make_lr_array)
+                                             make_batched_adapt_fn,
+                                             make_lr_array, stack_states,
+                                             task_forward, unstack_states)
 from mliis_tpu_torch.ops.metrics import batched_hard_iou, ci95, nanmean
 from mliis_tpu_torch.parallel import mesh as mesh_lib
 from mliis_tpu_torch.utils import checkpoint as ckpt_lib
@@ -79,6 +86,10 @@ class EvalConfig:
     lr_decay_after_n_steps: int = 5
     use_batch_stats_at_predict: bool = False
     weight_decay_rate: float = 1.0
+    # Tasks adapted and predicted together on a task axis.
+    task_chunk_size: int = 2
+    # Run each chunk's tasks one after another instead.
+    chain_chunk: bool = False
 
 
 class EpisodeDraws(NamedTuple):
@@ -155,6 +166,69 @@ def make_adapt_and_predict_fn(model: torch.nn.Module,
     return adapt_and_predict
 
 
+def make_batched_adapt_and_predict_fn(model: torch.nn.Module,
+                                      loss_config: LossConfig,
+                                      opt_config: OptimizerConfig,
+                                      config: EvalConfig):
+    """The episode protocol of T tasks on a task axis:
+    adapt_and_predict(state, task_images_u8 [T, n, H, W, 3], task_masks_u8
+    [T, n, H, W], draws (T EpisodeDraws), generators (T), lr,
+    drop_rate=None, aug_rate=None) -> (adapted stacked ModelState, query
+    images [T, Q, H, W, 3], query masks one-hot, query probs [T, Q, H, W,
+    2]): task t as `make_adapt_and_predict_fn`'s function gives it with
+    draws[t] and generators[t]. The predict's train-mode forwards update a
+    copy of the running stats, which is dropped."""
+    adapt = make_batched_adapt_fn(
+        model, loss_config, opt_config,
+        weight_decay_rate=config.weight_decay_rate, augment=config.augment,
+        precompute_augment=config.precompute_augment,
+        pallas_augment=config.pallas_augment)
+    gather = episodes.gather_tasks
+
+    def predict(adapted, support_images, query_images, generators):
+        params = adapted.params
+        buffers = {k: v.clone() for k, v in adapted.batch_stats.items()}
+
+        def forward(images, train):
+            kw = dict(final_layer_dropout_rate=0.0, generator=generators) \
+                if train else {}
+            return task_forward(model, params, buffers, images, train=train,
+                                **kw)[1]
+
+        if not config.use_batch_stats_at_predict:
+            return forward(query_images, False)
+        if config.transductive:
+            return forward(query_images, True)
+        support = support_images.float()
+        return torch.stack([
+            forward(torch.cat([support, query_images[:, q:q + 1]], dim=1),
+                    True)[:, -1]
+            for q in range(query_images.shape[1])], dim=1)
+
+    def adapt_and_predict(state: ModelState, task_images_u8, task_masks_u8,
+                          draws, generators, lr, drop_rate=None,
+                          aug_rate=None):
+        support_idx = torch.stack([d.shot_idx[d.support_rel] for d in draws])
+        query_idx = torch.stack([d.shot_idx[d.query_rel] for d in draws])
+        support_images = gather(task_images_u8, support_idx)
+        lrs = make_lr_array(lr, config.inner_iters, config.lr_scheduler,
+                            config.lr_decay_rate,
+                            config.lr_decay_after_n_steps)
+        adapted, _ = adapt(stack_states([state] * len(draws)),
+                           support_images, gather(task_masks_u8, support_idx),
+                           torch.stack([d.idx_matrix for d in draws]),
+                           generators, lrs, drop_rate=drop_rate,
+                           aug_rate=aug_rate)
+        query_images = gather(task_images_u8, query_idx).float()
+        query_masks = episodes.onehot_mask(gather(task_masks_u8, query_idx))
+        with torch.no_grad():
+            probs = predict(adapted, support_images, query_images,
+                            generators)
+        return adapted, query_images, query_masks, probs.float()
+
+    return adapt_and_predict
+
+
 def make_eval_task_fn(model: torch.nn.Module, loss_config: LossConfig,
                       opt_config: OptimizerConfig, config: EvalConfig):
     """eval_task(state, task_images_u8, task_masks_u8, draws, generator,
@@ -179,13 +253,19 @@ def make_eval_chunk_fn(model: torch.nn.Module, loss_config: LossConfig,
     task_indices, seed, lr, drop_rate, aug_rate, on_episode=None) ->
     per-task mean IoU [len(task_indices)] float64: task j of the list
     (store row task_indices[j]) draws from `episodes.slot_generator(seed,
-    j)`. With a `mesh`, this rank evaluates its share of the list
-    (`mesh.share`) and the IoUs are all-reduced over the task axis.
+    j)`. The tasks run `config.task_chunk_size` at a time on a task axis,
+    or one after another with `config.chain_chunk`. With a `mesh`, this
+    rank evaluates its share of the list (`mesh.share`), in chunks of
+    ceil(task_chunk_size / task ranks) (the JAX package's chunk tiles the
+    mesh), and the IoUs are all-reduced over the task axis.
     `on_episode(j, adapted, query_images, probs)` sees each episode this
     rank scored. The episode itself is `eval_chunk.episode(state,
     store_images, store_masks, store_counts, task_indices, j, seed, lr,
     drop_rate, aug_rate)`."""
     core = make_adapt_and_predict_fn(model, loss_config, opt_config, config)
+    batched = None if config.chain_chunk else \
+        make_batched_adapt_and_predict_fn(model, loss_config, opt_config,
+                                          config)
 
     def episode(state, images, masks, counts, task_indices, j, seed, lr,
                 drop_rate, aug_rate):
@@ -195,19 +275,49 @@ def make_eval_chunk_fn(model: torch.nn.Module, loss_config: LossConfig,
         return core(state, images[i], masks[i], draws, generator, lr,
                     drop_rate, aug_rate)
 
+    def episodes_together(state, images, masks, counts, task_indices, js,
+                          seed, lr, drop_rate, aug_rate):
+        """The episodes of the list positions `js` on a task axis, one
+        result tuple a position."""
+        rows = torch.as_tensor([task_indices[j] for j in js],
+                               device=images.device)
+        generators = [episodes.slot_generator(seed, j, images.device)
+                      for j in js]
+        draws = [draw_episode(g, counts[task_indices[j]], config,
+                              images.shape[1])
+                 for j, g in zip(js, generators)]
+        adapted, query_images, query_masks, probs = batched(
+            state, images[rows], masks[rows], draws, generators, lr,
+            drop_rate, aug_rate)
+        return list(zip(unstack_states(adapted), query_images, query_masks,
+                        probs))
+
     def eval_chunk(state, images, masks, counts, task_indices, seed, lr,
                    drop_rate, aug_rate, on_episode=None) -> np.ndarray:
         n = len(task_indices)
-        positions = range(n) if mesh is None else mesh_lib.share(n, mesh)
+        positions = list(range(n) if mesh is None
+                         else mesh_lib.share(n, mesh))
+        chunk = 1
+        if batched is not None:
+            ranks = 1 if mesh is None else mesh_lib.axis_size_of(
+                mesh, mesh_lib.TASK_AXIS)
+            chunk = -(-config.task_chunk_size // ranks)
         results = np.zeros((n,), np.float64)
-        for j in positions:
-            adapted, query_images, query_masks, probs = episode(
-                state, images, masks, counts, task_indices, j, seed, lr,
-                drop_rate, aug_rate)
-            if on_episode is not None:
-                on_episode(j, adapted, query_images, probs)
-            ious = batched_hard_iou((probs > 0.5).float(), query_masks)
-            results[j] = np.nanmean(ious.cpu().numpy())
+        for start in range(0, len(positions), chunk):
+            js = positions[start:start + chunk]
+            if batched is None:
+                outs = [episode(state, images, masks, counts, task_indices,
+                                js[0], seed, lr, drop_rate, aug_rate)]
+            else:
+                outs = episodes_together(state, images, masks, counts,
+                                         task_indices, js, seed, lr,
+                                         drop_rate, aug_rate)
+            for j, (adapted, query_images, query_masks, probs) in zip(
+                    js, outs):
+                if on_episode is not None:
+                    on_episode(j, adapted, query_images, probs)
+                ious = batched_hard_iou((probs > 0.5).float(), query_masks)
+                results[j] = np.nanmean(ious.cpu().numpy())
         if mesh is not None:
             results = mesh_lib.all_reduce_sum(
                 [torch.from_numpy(results).to(images.device)],
@@ -219,7 +329,7 @@ def make_eval_chunk_fn(model: torch.nn.Module, loss_config: LossConfig,
 
 
 class GeckoEvaluator:
-    """Task-by-task evaluation over a TaskStore held on `device` (the card
+    """Chunked evaluation over a TaskStore held on `device` (the card
     unless the caller asks for the CPU). The module is moved there; the
     state given to `evaluate` may lie anywhere and is never changed. With
     a `mesh` (a task axis over the world's ranks, each rank's device
@@ -251,9 +361,11 @@ class GeckoEvaluator:
                        drop_rate: Optional[float] = None,
                        aug_rate: Optional[float] = 0.5,
                        on_episode=None) -> np.ndarray:
-        """Per-task mean IoU for the given task indices, one task after
-        another (this rank's share of them under a mesh); `generator` lies
-        on the evaluator's device and gives the evaluation's seed.
+        """Per-task mean IoU for the given task indices, in chunks of
+        `task_chunk_size` on a task axis or one after another
+        (`chain_chunk`; this rank's share of them under a mesh);
+        `generator` lies on the evaluator's device and gives the
+        evaluation's seed.
         `on_episode(j, adapted, query_images, probs)`, where given, sees
         each episode this rank scored, j its position in the list."""
         return self._eval_chunk(

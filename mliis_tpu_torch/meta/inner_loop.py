@@ -30,13 +30,27 @@ gradients are averaged over the axis. Dropout and drop-connect draw each
 shard's own stream (`episodes.shard_generator`), as the JAX package folds
 each shard's dropout key; everything else equals the unsharded step up
 to the order of the sums.
+
+`make_batched_adapt_fn` adapts T tasks at once on a task axis (the body
+the JAX package runs under `jax.vmap`): the state is stacked [T, ...]
+(`stack_states`), each step gathers and augments the T batches in one
+pass (`episodes.assemble_batches`, one `full_pass` launch at T times the
+batch), runs one forward and backward of the module with the stacked
+params and running stats substituted (`torch.func.functional_call`
+under `layers.task_axis`), takes the sum of the T tasks' losses, whose
+gradient is each task's own, and updates the stacked params in place
+(the optimizer's step count is shared). Task t draws its augmentation,
+dropout and drop-connect from generators[t], in the order `adapt` draws
+them from its one generator, so task t adapts as `adapt` would adapt it
+alone, up to float rounding.
 """
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from mliis_tpu_torch.meta import episodes
+from mliis_tpu_torch.models import layers
 from mliis_tpu_torch.ops import losses as losses_lib
 from mliis_tpu_torch.parallel import mesh as mesh_lib
 from mliis_tpu_torch.parallel import spatial
@@ -257,6 +271,119 @@ def make_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
         if not losses:   # zero steps: a FOMAML* task of one inner step
             return snapshot(model, opt), torch.zeros(0)
         return snapshot(model, opt), torch.stack(losses)
+
+    return adapt
+
+
+def stack_states(states: Sequence[ModelState]) -> ModelState:
+    """T states -> one with every param, running stat and optimizer slot
+    stacked [T, ...]; the optimizer's step count is the first's (a task
+    axis shares it)."""
+    def stack(trees):
+        return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+    return ModelState(stack([s.params for s in states]),
+                      stack([s.batch_stats for s in states]),
+                      OptState(states[0].opt.step,
+                               stack([s.opt.v for s in states])))
+
+
+def unstack_states(state: ModelState) -> list:
+    """A stacked state -> its T states (views of it)."""
+    n = next(iter(state.params.values())).shape[0]
+
+    def take(tree, t):
+        return {k: v[t] for k, v in tree.items()}
+    return [ModelState(take(state.params, t), take(state.batch_stats, t),
+                       OptState(state.opt.step, take(state.opt.v, t)))
+            for t in range(n)]
+
+
+def task_forward(model: torch.nn.Module, params: Tree, buffers: Tree,
+                 images: torch.Tensor, **kwargs):
+    """The module's forward on a task axis: images [T, B, H, W, 3] through
+    the module with the stacked `params` and `buffers` in place of its own
+    (a train-mode forward updates `buffers`' running stats in place)."""
+    with layers.task_axis(images.shape[0]):
+        return torch.func.functional_call(model, {**params, **buffers},
+                                          (images,), kwargs)
+
+
+def make_batched_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
+                          opt_config: OptimizerConfig,
+                          weight_decay_rate: float = 1.0,
+                          augment: bool = True,
+                          precompute_augment: bool = False,
+                          pallas_augment: Optional[bool] = None,
+                          data_shard: Optional[DataShardSpec] = None
+                          ) -> Callable:
+    """`make_adapt_fn` on a task axis: adapt(states, support_images_u8,
+    support_masks_u8, idx_matrix, generators, lrs, drop_rate=None,
+    aug_rate=None) -> (adapted stacked ModelState, per-step losses [T,
+    steps]).
+
+    states: a stacked ModelState (`stack_states`); support_images_u8 [T,
+    S, H, W, 3], support_masks_u8 [T, S, H, W], idx_matrix [T, steps,
+    batch], generators: T generators, lrs: [steps], the same for every
+    task. The input state may lie on any device and is left untouched;
+    the adapted state lies on the support images' device. The module's
+    own parameters are not used. A task axis does not compose with a
+    mesh data axis (`data_shard`: NotImplementedError)."""
+    if data_shard is not None:
+        raise NotImplementedError("a task axis with a mesh data axis")
+    params_order = [k for k, _ in model.named_parameters()]
+
+    def adapt(states: ModelState, support_images_u8, support_masks_u8,
+              idx_matrix, generators, lrs, drop_rate=None, aug_rate=None
+              ) -> Tuple[ModelState, torch.Tensor]:
+        generators = list(generators)
+        n_tasks = len(generators)
+        dev = support_images_u8.device
+        params = {k: states.params[k].detach().to(dev, copy=True)
+                  .requires_grad_(True) for k in params_order}
+        buffers = {k: v.detach().to(dev, copy=True)
+                   for k, v in states.batch_stats.items()}
+        plist = list(params.values())
+        opt = OptState(states.opt.step.to(dev),
+                       {k: v.to(dev) for k, v in states.opt.v.items()})
+        lr_list = [float(v) for v in torch.as_tensor(lrs, dtype=torch.float32)]
+
+        def batch(i):
+            return episodes.assemble_batches(
+                support_images_u8, support_masks_u8, idx_matrix[:, i],
+                generators, aug_rate=aug_rate, augment=augment,
+                kernels=pallas_augment is not False)
+
+        staged = None
+        if precompute_augment and augment:
+            staged = [tuple(t.to(torch.bfloat16) for t in batch(i))
+                      for i in range(len(lr_list))]
+        losses = []
+        for i, lr in enumerate(lr_list):
+            if staged is None:
+                images, masks = batch(i)
+            else:
+                images, masks = (t.float() for t in staged[i])
+            if weight_decay_rate != 1.0:
+                with torch.no_grad():
+                    torch._foreach_mul_(plist, weight_decay_rate)
+            logits, probs = task_forward(
+                model, params, buffers, images, train=True,
+                final_layer_dropout_rate=drop_rate, generator=generators)
+            loss = losses_lib.segmentation_losses(
+                logits, probs, masks, params,
+                label_smoothing=loss_config.label_smoothing,
+                dice=loss_config.dice,
+                binary_iou_loss=loss_config.binary_iou_loss,
+                l2=loss_config.l2, l1=loss_config.l1,
+                darc1=loss_config.darc1)
+            grads = torch.autograd.grad(loss.sum(), plist)
+            opt = apply_optimizer_(plist, grads, opt, lr, opt_config)
+            losses.append(loss.detach())
+        adapted = ModelState({k: p.detach() for k, p in params.items()},
+                             buffers, opt)
+        if not losses:   # zero steps: a FOMAML* task of one inner step
+            return adapted, torch.zeros((n_tasks, 0))
+        return adapted, torch.stack(losses, dim=1)
 
     return adapt
 

@@ -116,7 +116,8 @@ def evaluate_k_shot_range(model, loss_config: LossConfig,
                               inner_batch_size=min(inner_batch_size, k_eff),
                               inner_iters=inner_iters, transductive=True,
                               augment=True,
-                              pallas_augment=cache.pallas_augment)
+                              pallas_augment=cache.pallas_augment,
+                              task_chunk_size=1)
         per_task = cache.gecko(eval_cfg).evaluate_tasks(
             state, [task_index], generator, lr, aug_rate=aug_rate)
         mious.append(float(per_task[0]))

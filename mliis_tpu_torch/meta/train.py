@@ -1,18 +1,26 @@
 """The meta-training loop: `train_gecko`.
 
 The port of the JAX package's `meta/train.py`. Orchestration stays on the
-host: per meta-step, the annealed meta-step size, the draws, one chained
-meta-step (`learners.make_chained_train_step`); every `eval_interval`
+host: per meta-step, the annealed meta-step size, the draws, one
+meta-step; every `eval_interval`
 steps a train and a test evaluation whose IoUs go to `MetricsWriter`
 scalars and drive the best-seen checkpoint; periodic checkpoints (and the
 last step's) rotated to `max_checkpoints_to_keep`; an early exit at a
 time deadline; the per-meta-step time line; and the `PhaseTimer` summary
 appended to `phase_timings.jsonl`.
 
-The JAX package's step strategies (vmapped, task groups, chained) make
-the same draws and do the same outer math; the port always chains its
-tasks. With `mesh_tasks` the meta-batch shards over a task mesh of that
-many ranks (`parallel/mesh.make_sharded_train_step`); with `mesh_data`
+The step is chosen as the JAX package chooses it (its meta/train.py:91-
+127): with `mesh_tasks`, the sharded step (each rank's slots chained
+with `chain_tasks`, on a task axis without); else with `chain_tasks`
+the chained step (`learners.make_chained_train_step`); else with
+`task_group_size` the microbatched step
+(`learners.make_microbatched_train_step`); else the meta-batch on a task
+axis (`learners.make_train_step`). The strategies make the same draws
+and the same outer math. The interval evaluators run their tasks
+`eval_task_chunk_size` at a time on a task axis, or one after another
+with `chain_eval_chunk`. With `mesh_tasks` the meta-batch shards over a
+task mesh of that many ranks (`parallel/mesh.make_sharded_train_step`);
+with `mesh_data`
 > 1 as well, over a (mesh_tasks, mesh_data) mesh whose training model is
 a sync-BN copy of `model`, while the interval evaluators keep `model` and
 shard their tasks over a task mesh of all the ranks. Every rank runs this
@@ -38,6 +46,8 @@ from mliis_tpu_torch.meta.inner_loop import (LossConfig, ModelState,
                                              OptimizerConfig)
 from mliis_tpu_torch.meta.learners import (MetaTrainConfig, draw_meta_step,
                                            make_chained_train_step,
+                                           make_microbatched_train_step,
+                                           make_train_step,
                                            meta_step_size_schedule)
 from mliis_tpu_torch.parallel import mesh as mesh_lib
 from mliis_tpu_torch.utils import checkpoint as ckpt_lib
@@ -63,6 +73,14 @@ class TrainLoopConfig:
     lr: float = 5e-4
     transductive: bool = False
     aug_rate: Optional[float] = None
+    # Run the meta-batch in task groups of this size (the microbatched
+    # step) when set.
+    task_group_size: Optional[int] = None
+    # Run the meta-batch's tasks one after another (the chained step); with
+    # mesh_tasks, each rank's slots.
+    chain_tasks: bool = False
+    # Run the interval evaluators' chunks one task after another.
+    chain_eval_chunk: bool = False
     # When > 0, shard the meta-batch (and the evaluators' tasks) over a
     # task mesh of this many ranks (parallel/mesh.py).
     mesh_tasks: int = 0
@@ -77,10 +95,12 @@ def train_gecko(model: torch.nn.Module, state: ModelState,
                 opt_config: OptimizerConfig, meta_config: MetaTrainConfig,
                 loop_config: TrainLoopConfig, generator: torch.Generator,
                 log_fn: Callable = print, device=None,
-                draw_fn: Callable = draw_meta_step) -> ModelState:
+                draw_fn: Callable = draw_meta_step,
+                eval_task_chunk_size: int = 8) -> ModelState:
     """Run meta-training on `device` (the card unless the caller asks for
     the CPU; with a mesh, this rank's card; `generator` lies there too);
-    returns the final ModelState."""
+    returns the final ModelState. The interval evaluators take
+    `eval_task_chunk_size` tasks at a time."""
     cfg = loop_config
     if cfg.mesh_data and cfg.mesh_data > 1 and not cfg.mesh_tasks:
         raise ValueError(
@@ -99,12 +119,21 @@ def train_gecko(model: torch.nn.Module, state: ModelState,
                                                       dev)
             train_model = mesh_lib.sync_bn_copy(model)
         train_step = mesh_lib.make_sharded_train_step(
-            train_model, loss_config, opt_config, meta_config, train_mesh)
+            train_model, loss_config, opt_config, meta_config, train_mesh,
+            chain_local=cfg.chain_tasks)
         state = mesh_lib.replicate_to_mesh(state, train_mesh)
     else:
         dev = resolve_device(device)
-        train_step = make_chained_train_step(model, loss_config, opt_config,
-                                             meta_config)
+        if cfg.chain_tasks:
+            train_step = make_chained_train_step(model, loss_config,
+                                                 opt_config, meta_config)
+        elif cfg.task_group_size:
+            train_step = make_microbatched_train_step(
+                model, loss_config, opt_config, meta_config,
+                group_size=cfg.task_group_size)
+        else:
+            train_step = make_train_step(model, loss_config, opt_config,
+                                         meta_config)
     model.to(dev)
     writes = mesh_lib.is_writer()
     log_fn = mesh_lib.writer_log(log_fn)
@@ -122,7 +151,9 @@ def train_gecko(model: torch.nn.Module, state: ModelState,
         lr_scheduler=meta_config.lr_scheduler,
         lr_decay_rate=meta_config.lr_decay_rate,
         lr_decay_after_n_steps=meta_config.lr_decay_after_n_steps,
-        weight_decay_rate=meta_config.weight_decay_rate)
+        weight_decay_rate=meta_config.weight_decay_rate,
+        task_chunk_size=eval_task_chunk_size,
+        chain_chunk=cfg.chain_eval_chunk)
     evaluators = {
         "train": GeckoEvaluator(model, loss_config, opt_config, eval_cfg,
                                 train_store, device=dev, mesh=mesh),

@@ -10,7 +10,11 @@ The port of the JAX package's `meta/uho_eval.py`:
     aug_rate, inner_batch_size} with the above as its objective; writes the
     per-config CSV (with `_{shots}-shot` before its extension) and returns
     (best lr, median steps).
-Tasks run one after another on the evaluator's device. An evaluation draws
+The traces run one task after another on the evaluator's device (the JAX
+package vmaps them over chunks of tasks); the median-step re-evaluation
+runs `task_chunk_size` tasks at a time on a task axis, or one after
+another with `chain_chunk` (`evaluate.GeckoEvaluator`). An evaluation
+draws
 one seed from the generator passed in, and its task j draws from its own
 generator (`episodes.slot_generator`). With a mesh each task rank traces
 its share of the tasks and the (steps, IoU) pairs are all-reduced into
@@ -47,8 +51,11 @@ class EarlyStoppingEvaluator:
                  replacement: bool = False, augment: bool = True,
                  weight_decay_rate: float = 1.0, patience: int = 50,
                  pallas_augment: Optional[bool] = None, device=None,
-                 mesh=None):
+                 mesh=None, task_chunk_size: int = 4,
+                 chain_chunk: bool = False):
         self.device = resolve_device(device)
+        self.task_chunk_size = task_chunk_size
+        self.chain_chunk = chain_chunk
         self.mesh = mesh
         self.model = model.to(self.device)
         self.loss_config = loss_config
@@ -150,7 +157,9 @@ class EarlyStoppingEvaluator:
                 inner_iters=max(estimated_best_num_steps, 1),
                 replacement=self.replacement, augment=self.augment,
                 weight_decay_rate=self.weight_decay_rate,
-                pallas_augment=self.pallas_augment)
+                pallas_augment=self.pallas_augment,
+                task_chunk_size=self.task_chunk_size,
+                chain_chunk=self.chain_chunk)
             evaluator = self._gecko_cache.get(eval_cfg)
             if evaluator is None:
                 evaluator = GeckoEvaluator(self.model, self.loss_config,

@@ -20,6 +20,16 @@ dropout rate is a fixed 0.5 in training, apart from the final layer's.
 skip decoder's and the RSD modules' included, averages its batch moments
 (sync-BN for the data-sharded paths, `parallel/mesh.py`).
 
+Under a bound task axis (`layers.task_axis`, with every parameter and
+running stat stacked [T, ...] through `torch.func.functional_call`) the
+images are [T, B, H, W, 3] and the logits and probabilities [T, B, H, W,
+C]: the forward folds the tasks into channels (`layers.fold_nhwc`), every
+concat (the RSD skips, ASPP's branches, the skip decoder) goes task by
+task, `generator` is a list of T generators (drop-connect, dropout and
+ASPP's dropout draw each task's masks from its own), and the logits are
+unfolded at the end: T one-task forwards in one, the JAX package's
+`jax.vmap` of the module.
+
 Under a bound spatial context (`parallel/spatial.py`) the images are this
 rank's rows: the per-image means sum over every rank's rows
 (`spatial.mean_hw`), and the resizes take the global heights (the
@@ -53,9 +63,10 @@ _BACKBONE_CONFIG = {
 
 
 def _cat(tensors):
-    """Channel concat with jnp-style dtype promotion."""
+    """Channel concat with jnp-style dtype promotion; task by task under a
+    task axis (`layers.cat`)."""
     dtype = functools.reduce(torch.promote_types, [t.dtype for t in tensors])
-    return torch.cat([t.to(dtype) for t in tensors], dim=1)
+    return layers.cat([t.to(dtype) for t in tensors])
 
 
 def _dropout(x, rate, train, generator):
@@ -236,17 +247,19 @@ class EfficientLab(nn.Module):
                 final_layer_dropout_rate: Optional[float] = None,
                 generator: Optional[torch.Generator] = None,
                 upsample: bool = True):
-        """images: [N, H, W, 3] float32 in [0, 255]. The logits are an NHWC
-        view of the NCHW resize output. With `upsample=False` the logits
-        stay NCHW at the decoder's resolution and no probabilities are
-        computed (None takes their place): a caller with many classes
-        resizes and takes its loss a piece at a time (joint/trainer.py)."""
-        in_h, in_w = spatial.global_height(images, 1), images.shape[2]
+        """images: [N, H, W, 3] float32 in [0, 255] ([T, N, H, W, 3] under
+        a task axis). The logits are an NHWC view of the NCHW resize
+        output. With `upsample=False` the logits stay NCHW at the
+        decoder's resolution and no probabilities are computed (None takes
+        their place): a caller with many classes resizes and takes its loss
+        a piece at a time (joint/trainer.py)."""
+        in_h = spatial.global_height(images, images.ndim - 3)
+        in_w = images.shape[-2]
         mean = torch.tensor(MEAN_RGB, dtype=images.dtype,
                             device=images.device)
         std = torch.tensor(STDDEV_RGB, dtype=images.dtype,
                            device=images.device)
-        x = ((images - mean) / std).permute(0, 3, 1, 2)
+        x = layers.fold_nhwc((images - mean) / std)
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         _, endpoints = getattr(self, self.backbone_name)(x, train, generator)
@@ -273,6 +286,6 @@ class EfficientLab(nn.Module):
         decoded = self.final_layer_weights(decoded).float()
         if not upsample:
             return decoded, None
-        logits = resize_bilinear_align_corners_nchw(decoded, in_h, in_w)
-        logits = logits.permute(0, 2, 3, 1)
+        logits = layers.unfold_nchw(
+            resize_bilinear_align_corners_nchw(decoded, in_h, in_w))
         return logits, torch.softmax(logits, dim=-1)

@@ -24,13 +24,29 @@ What differs from the obvious `nn.Conv2d` / `nn.BatchNorm2d`:
     over ranks) a conv with a window (k > 1 or stride > 1) fetches the
     input rows its owned output rows read and pads only W, a batch norm
     without `axis_name` takes the moments of every rank's rows, and
-    dropout keeps this rank's rows of the whole map's mask.
+    dropout keeps this rank's rows of the whole map's mask;
+  - under a bound task axis (`task_axis`, the JAX package's `jax.vmap`
+    over a meta-batch's tasks) every parameter and running stat is
+    stacked [T, ...] (substituted with `torch.func.functional_call`) and
+    the activations fold the task axis into channels, [B, T*C, H, W] with
+    task t's channels at [t*C, (t+1)*C): a conv runs with T times the
+    groups over its kernel viewed [T*Cout, Cin/groups, k, k], a batch
+    norm's moments and running stats are per channel and so per task,
+    drop-connect and dropout draw each task's mask from that task's own
+    generator (a list of T generators takes the one generator's place)
+    with the shape a one-task forward draws, and `cat` concatenates each
+    task's channels (a plain `torch.cat` would mix tasks). `fold_nhwc`
+    and `unfold_nchw` move the images and logits in and out of the
+    folded layout. A task axis does not compose with a spatial context
+    or a mesh `axis_name` (NotImplementedError).
 Parameter names keep the flax names (`kernel`, `bias`, `scale`; running
 stats `mean`, `var`) so checkpoints map one to one and the l2 term can skip
 batch norm by name.
 """
+import contextlib
+import contextvars
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -38,6 +54,73 @@ import torch.nn.functional as F
 
 from mliis_tpu_torch.parallel import mesh as mesh_lib
 from mliis_tpu_torch.parallel import spatial
+
+
+_TASKS: contextvars.ContextVar = contextvars.ContextVar("task_axis",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def task_axis(num_tasks: int):
+    """Bind a task axis of `num_tasks` tasks for the block: the models'
+    layers then compute T tasks at once in the folded layout."""
+    if spatial.current() is not None:
+        raise NotImplementedError("a task axis under a spatial context")
+    token = _TASKS.set(int(num_tasks))
+    try:
+        yield
+    finally:
+        _TASKS.reset(token)
+
+
+def fold_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NHWC [B, H, W, C] -> an NCHW view; under a task axis [T, B, H, W,
+    C] -> the folded [B, T*C, H, W], channels-last in memory as the
+    one-task view is."""
+    t = _TASKS.get()
+    if t is None:
+        return x.permute(0, 3, 1, 2)
+    _, b, h, w, c = x.shape
+    return x.permute(1, 2, 3, 0, 4).reshape(b, h, w, t * c).permute(
+        0, 3, 1, 2)
+
+
+def unfold_nchw(x: torch.Tensor) -> torch.Tensor:
+    """NCHW [B, C, H, W] -> an NHWC view; under a task axis the folded
+    [B, T*C, H, W] -> [T, B, H, W, C]."""
+    t = _TASKS.get()
+    if t is None:
+        return x.permute(0, 2, 3, 1)
+    b, tc, h, w = x.shape
+    return x.reshape(b, t, tc // t, h, w).permute(1, 0, 3, 4, 2)
+
+
+def cat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Channel concat of NCHW maps; under a task axis each task's channels
+    in turn, so task t's block holds its own maps' channels (channels-last
+    in memory, as `torch.cat` keeps channels-last maps)."""
+    t = _TASKS.get()
+    if t is None:
+        return torch.cat(list(tensors), dim=1)
+    b, _, h, w = tensors[0].shape
+    nhwc = torch.cat([x.permute(0, 2, 3, 1).reshape(b, h, w, t, -1)
+                      for x in tensors], dim=-1)
+    return nhwc.reshape(b, h, w, -1).permute(0, 3, 1, 2)
+
+
+def _task_draws(generator, shape, device, dtype=None) -> torch.Tensor:
+    """Uniform draws of `shape` from `generator`; under a task axis one
+    draw of that shape from each task's generator, stacked [B, T, ...]
+    (`shape` is one task's, batch dim first)."""
+    t = _TASKS.get()
+    if t is None:
+        return torch.rand(shape, generator=generator, device=device,
+                          dtype=dtype)
+    if len(generator) != t:
+        raise ValueError("a task axis of {} needs {} generators, got {}"
+                         .format(t, t, len(generator)))
+    return torch.stack([torch.rand(shape, generator=g, device=device,
+                                   dtype=dtype) for g in generator], dim=1)
 
 
 def same_padding(size: int, kernel: int, stride: int = 1,
@@ -94,6 +177,9 @@ class Conv2d(nn.Module):
         k, s, d = self.kernel_size, self.stride, self.dilation
         if spatial.current() is not None and (k > 1 or s > 1
                                               or x.shape[-2] == 0):
+            if _TASKS.get() is not None:
+                raise NotImplementedError("a task axis under a spatial "
+                                          "context")
             return self._forward_sharded(x)
         ph = same_padding(x.shape[-2], k, s, d)
         pw = same_padding(x.shape[-1], k, s, d)
@@ -101,9 +187,15 @@ class Conv2d(nn.Module):
         x = x.to(dtype)
         if any(ph + pw):
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        bias = None if self.bias is None else self.bias.to(dtype)
-        return F.conv2d(x, self.kernel.to(dtype), bias, stride=s,
-                        dilation=d, groups=self.groups)
+        kernel, bias, groups = self.kernel, self.bias, self.groups
+        t = _TASKS.get()
+        if t is not None:   # stacked [T, Cout, Cin/g, k, k]: T x the groups
+            kernel = kernel.reshape((-1,) + tuple(kernel.shape[2:]))
+            bias = None if bias is None else bias.reshape(-1)
+            groups *= t
+        bias = None if bias is None else bias.to(dtype)
+        return F.conv2d(x, kernel.to(dtype), bias, stride=s, dilation=d,
+                        groups=groups)
 
     def _forward_sharded(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's output rows of the conv of an H-sharded map: the
@@ -161,6 +253,9 @@ class FusedBatchNorm(nn.Module):
             self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if self.axis_name is not None and _TASKS.get() is not None:
+            raise NotImplementedError("a task axis with sync-BN over {!r}"
+                                      .format(self.axis_name))
         if train or self.always_batch_stats:
             xf = x.float()
             if self.axis_name is None and spatial.current() is not None:
@@ -172,15 +267,16 @@ class FusedBatchNorm(nn.Module):
                 mean, mean2 = mesh_lib.pmean(torch.stack([mean, mean2]),
                                              self.axis_name)
             var = mean2 - mean.square()
-            if train:
+            if train:   # the buffers may be stacked [T, C]: view them flat
                 m = self.momentum
                 with torch.no_grad():
-                    self.mean.mul_(m).add_((1.0 - m) * mean.detach())
-                    self.var.mul_(m).add_((1.0 - m) * var.detach())
+                    self.mean.view(-1).mul_(m).add_((1.0 - m)
+                                                    * mean.detach())
+                    self.var.view(-1).mul_(m).add_((1.0 - m) * var.detach())
         else:
-            mean, var = self.mean, self.var
-        inv = torch.rsqrt(var + self.epsilon) * self.scale
-        add = self.bias - mean * inv
+            mean, var = self.mean.reshape(-1), self.var.reshape(-1)
+        inv = torch.rsqrt(var + self.epsilon) * self.scale.reshape(-1)
+        add = self.bias.reshape(-1) - mean * inv
         dtype = self.compute_dtype or x.dtype
         return (x.to(dtype) * inv.to(dtype)[:, None, None]
                 + add.to(dtype)[:, None, None])
@@ -189,24 +285,36 @@ class FusedBatchNorm(nn.Module):
 swish = F.silu
 
 
-def drop_connect(generator: torch.Generator, x: torch.Tensor,
+def drop_connect(generator, x: torch.Tensor,
                  drop_rate: float) -> torch.Tensor:
-    """Stochastic depth on the residual branch; batch dim first."""
+    """Stochastic depth on the residual branch; batch dim first. Under a
+    task axis each task drops its own samples' branches, drawn from its
+    generator."""
     keep_prob = 1.0 - drop_rate
+    t = _TASKS.get()
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    random_tensor = keep_prob + torch.rand(shape, generator=generator,
-                                           device=x.device, dtype=x.dtype)
-    return (x / keep_prob) * torch.floor(random_tensor)
+    random_tensor = keep_prob + _task_draws(generator, shape, x.device,
+                                            x.dtype)
+    if t is None:
+        return (x / keep_prob) * torch.floor(random_tensor)
+    folded = x.reshape((x.shape[0], t, -1) + tuple(x.shape[2:]))
+    return ((folded / keep_prob) * torch.floor(random_tensor)
+            ).reshape(x.shape)
 
 
-def traced_dropout(generator: torch.Generator, x: torch.Tensor,
+def traced_dropout(generator, x: torch.Tensor,
                    rate: float) -> torch.Tensor:
     """Inverted dropout: keep with probability 1-rate, scale by 1/keep.
     Under a spatial context an NCHW map keeps this rank's rows of the
     mask drawn for every row, so the generator moves as in the unsharded
-    forward."""
+    forward. Under a task axis each task's mask is drawn from its own
+    generator at one task's shape."""
     keep_prob = 1.0 - rate
-    if spatial.current() is None:
+    t = _TASKS.get()
+    if t is not None:
+        shape = (x.shape[0], x.shape[1] // t) + tuple(x.shape[2:])
+        draw = _task_draws(generator, shape, x.device).reshape(x.shape)
+    elif spatial.current() is None:
         draw = torch.rand(x.shape, generator=generator, device=x.device)
     else:
         shape = x.shape[:-2] + (spatial.global_height(x), x.shape[-1])

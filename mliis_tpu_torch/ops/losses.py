@@ -30,6 +30,12 @@ unequal row counts), each image's soft intersection and sums of the dice
 term are summed over the axis before the ratio, and darc1 takes the max
 over every rank's positions of its batch sums. The batch is whole on
 every rank, so the means over images stay local.
+
+`segmentation_losses` is the loss of T tasks at once (a task axis first
+on the logits, labels and stacked params): each task's CE mean, dice
+term, darc1 and l2/l1 on its own params, [T]. Its sum's gradient with
+respect to the stacked params is each task's own gradient, as the JAX
+package's `jax.vmap` of the loss and grad gives it.
 """
 import math
 import re
@@ -199,4 +205,49 @@ def segmentation_loss(logits: torch.Tensor, probabilities: torch.Tensor,
             loss = loss + l2_term(params)
         if l1:
             loss = loss + l1_term(params)
+    return loss
+
+
+def _per_task_sum(v: torch.Tensor) -> torch.Tensor:
+    """[T, ...] -> [T]: the sum over all but the task axis."""
+    return v.reshape(v.shape[0], -1).sum(1)
+
+
+def segmentation_losses(logits: torch.Tensor, probabilities: torch.Tensor,
+                        labels: torch.Tensor,
+                        params: Optional[Dict[str, torch.Tensor]] = None, *,
+                        label_smoothing: float = 0.0, dice: bool = True,
+                        binary_iou_loss: bool = True, l2: bool = True,
+                        l1: bool = False, darc1: bool = False,
+                        weight_decay: float = 0.0005) -> torch.Tensor:
+    """`segmentation_loss` of T tasks: logits, probabilities, labels [T, N,
+    H, W, C]; params stacked [T, ...]. Returns the [T] losses, task t's
+    computed from its own slices alone."""
+    t, n, h, w, c = logits.shape
+    smoothed = labels
+    if label_smoothing:
+        smoothed = labels * (1.0 - label_smoothing) + label_smoothing / c
+    per_pixel = -(smoothed * F.log_softmax(logits, dim=-1)).sum(-1)
+    loss = per_pixel.reshape(t, -1).mean(1)
+    if dice:
+        if binary_iou_loss:
+            true_flat = labels[..., 1].reshape(t * n, -1)
+            pred_flat = probabilities[..., 1].reshape(t * n, -1)
+        else:
+            true_flat = labels.reshape(t * n, -1)
+            pred_flat = probabilities.reshape(t * n, -1)
+        iou = soft_iou_flat_per_example(true_flat, pred_flat).reshape(
+            t, n).mean(1)
+        loss = soft_dice_adjustment(loss, iou)
+    if darc1:
+        loss = loss + weight_decay * logits.reshape(t, n, -1).abs().sum(
+            1).max(1).values
+    if params is not None:
+        kept = [v for k, v in params.items() if not is_bn_name(k)]
+        if l2:
+            loss = loss + weight_decay * sum(_per_task_sum(v.square()) / 2.0
+                                             for v in kept)
+        if l1:
+            loss = loss + weight_decay * sum(_per_task_sum(v.abs())
+                                             for v in kept)
     return loss

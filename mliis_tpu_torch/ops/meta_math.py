@@ -25,6 +25,11 @@ def tree_average(trees: Sequence[Tree]) -> Tree:
     return tree_map(lambda *xs: torch.stack(xs).mean(0), *trees)
 
 
+def tree_mean_over_axis(tree: Tree, axis: int = 0) -> Tree:
+    """Mean over a leading (task) axis of every tensor."""
+    return tree_map(lambda x: x.mean(axis), tree)
+
+
 def tree_sub(a: Tree, b: Tree) -> Tree:
     return tree_map(lambda x, y: x - y, a, b)
 

@@ -374,8 +374,10 @@ def make_sharded_train_step(model, loss_config, opt_config, config,
     same on every rank.
 
     Rank d of the task axis owns the slots [d*local_n, (d+1)*local_n),
-    local_n = ceil(meta_batch / task ranks), and runs them one after
-    another; a padded slot (slot >= meta_batch) does no work (the JAX
+    local_n = ceil(meta_batch / task ranks), and runs them together on a
+    task axis (`learners.make_batched_per_task_fn`, the JAX package's
+    vmap of a rank's slots) or, with `chain_local`, one after another; a
+    padded slot (slot >= meta_batch) does no work (the JAX
     package runs it at weight 0). The updates, batch stats and optimizer
     slots are summed over the rank's slots, all-reduced over the task
     axis in one flat sum and divided by meta_batch, as the chained step
@@ -389,17 +391,17 @@ def make_sharded_train_step(model, loss_config, opt_config, config,
     FOMAML* tail step runs whole on every data rank, and dropout and
     drop-connect draw each data shard's own stream.
 
-    `chain_local` is accepted and selects the same loop: the port's only
-    per-rank form runs its slots one after another (the JAX package's
-    chained form; its vmapped form makes the same numbers). The JAX
-    package's `n_max` is not a parameter: the draws come with the step's
-    arguments, as for `learners.make_chained_train_step`.
+    With a data axis the rank's slots run one after another whatever
+    `chain_local` says: a task axis does not compose with sync-BN's axis
+    yet. The JAX package's `n_max` is not a parameter: the draws come with
+    the step's arguments, as for `learners.make_chained_train_step`.
     """
-    del chain_local
     from mliis_tpu_torch.meta.inner_loop import DataShardSpec
     from mliis_tpu_torch.meta.learners import (finish_meta_step,
+                                               make_batched_per_task_fn,
                                                make_per_task_fn,
-                                               sum_over_slots)
+                                               sum_over_slots,
+                                               sum_over_slots_batched)
     if TASK_AXIS not in (mesh.mesh_dim_names or ()):
         raise ValueError("the meta-step shards over a mesh with a 'task' "
                          "axis; got {}".format(mesh.mesh_dim_names))
@@ -420,17 +422,23 @@ def make_sharded_train_step(model, loss_config, opt_config, config,
             raise ValueError("data-axis sharding augments in the loop "
                              "(precompute unsupported)")
         data_shard = DataShardSpec(axis_name=DATA_AXIS, num_shards=n_data)
-    per_task = make_per_task_fn(model, loss_config, opt_config, config,
-                                data_shard=data_shard)
     d = mesh.get_local_rank(TASK_AXIS)
     slots = range(min(d * local_n, m), min((d + 1) * local_n, m))
+    if chain_local or data_shard is not None or not slots:
+        per_task = make_per_task_fn(model, loss_config, opt_config, config,
+                                    data_shard=data_shard)
+        local_sums = sum_over_slots
+    else:
+        per_task = make_batched_per_task_fn(model, loss_config, opt_config,
+                                            config)
+        local_sums = sum_over_slots_batched
     task_group = mesh.get_group(TASK_AXIS)
 
     def train_step(state, store_images, store_masks, draws, meta_step_size,
                    lr):
         with bound(mesh):
-            sums = sum_over_slots(per_task, state, store_images, store_masks,
-                                  draws, slots, lr)
+            sums = local_sums(per_task, state, store_images, store_masks,
+                              draws, slots, lr)
         flat = [t for tree in sums for t in tree.values()]
         reduced = iter(all_reduce_sum(flat, task_group))
         sums = tuple({k: next(reduced) for k in s} for s in sums)
@@ -445,8 +453,10 @@ def make_sharded_eval_chunk(model, loss_config, opt_config, config,
     eval_chunk(state, store_images, store_masks, store_counts,
     task_indices, seed, lr, drop_rate, aug_rate) -> per-task mean IoU.
     Each task rank evaluates its contiguous share of the tasks, task j
-    drawing from its own generator (`seed`, j), and the IoUs are
-    all-reduced into place (`evaluate.make_eval_chunk_fn`)."""
+    drawing from its own generator (`seed`, j), on a task axis in chunks
+    of ceil(task_chunk_size / task ranks) or, with `chain_chunk`, one
+    after another, and the IoUs are all-reduced into place
+    (`evaluate.make_eval_chunk_fn`)."""
     from mliis_tpu_torch.meta.evaluate import make_eval_chunk_fn
     if TASK_AXIS not in (mesh.mesh_dim_names or ()):
         raise ValueError("the evaluation shards over a mesh with a 'task' "

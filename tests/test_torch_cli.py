@@ -61,9 +61,8 @@ FLAG_SETS = {
 
 JAX_ONLY = {
     "model_kwargs": set(),
-    "train_loop_config": {"task_group_size", "chain_tasks",
-                          "chain_eval_chunk"},
-    "eval_config": {"task_chunk_size", "chain_chunk"},
+    "train_loop_config": set(),
+    "eval_config": set(),
 }
 
 

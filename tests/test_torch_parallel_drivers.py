@@ -105,8 +105,9 @@ def test_larger_mesh_without_torchrun_raises(monkeypatch):
 
 def test_world_of_one_starts_itself(tmp_path, monkeypatch):
     """A mesh of 1 without torchrun starts a world of 1 on a FileStore under
-    the given directory, and its sharded step is the chained step, bit for
-    bit; the world ends with the block."""
+    the given directory, and its sharded step with its slots chained
+    (`chain_local`) is the chained step, bit for bit; the world ends with
+    the block."""
     for name in ("RANK", "WORLD_SIZE"):
         monkeypatch.delenv(name, raising=False)
     model, state = _model_state()
@@ -121,7 +122,7 @@ def test_world_of_one_starts_itself(tmp_path, monkeypatch):
         assert os.path.exists(tmp_path / ".world_store")
         step = mesh_lib.make_sharded_train_step(
             model, til.LossConfig(), til.OptimizerConfig("sgd"), cfg,
-            mesh_lib.make_task_mesh(1, dev))
+            mesh_lib.make_task_mesh(1, dev), chain_local=True)
         out = step(state, images, masks,
                    tlr.draw_meta_step(5, counts, cfg, 10), 0.3, 0.01)
     assert not torch.distributed.is_initialized()

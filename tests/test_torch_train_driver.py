@@ -189,10 +189,8 @@ def test_interval_evaluators_inherit_training_protocol(stores, tmp_path,
                                                        monkeypatch):
     """The interval evaluators run the training protocol (replacement, the
     LR scheduler and its decay, weight decay, augmentation and its route),
-    field for field as the JAX loop hands it to its evaluators, over the
-    fields both EvalConfigs have. JAX-only: task_chunk_size and
-    chain_chunk (its vmapped chunks; the port runs tasks one after
-    another)."""
+    field for field as the JAX loop hands it to its evaluators, the chunk
+    size and the chunk strategy included."""
     train, test = stores
     jmodel, jstate, tmodel, tstate = _models()
     protocol = dict(num_shots=6, inner_batch_size=3, inner_iters=2,
@@ -224,16 +222,15 @@ def test_interval_evaluators_inherit_training_protocol(stores, tmp_path,
                        _torch_store(test), str(tmp_path / "t"),
                        til.LossConfig(), til.OptimizerConfig("sgd"),
                        tlr.MetaTrainConfig(**protocol),
-                       ttrain.TrainLoopConfig(**loop),
+                       ttrain.TrainLoopConfig(chain_tasks=True, **loop),
                        torch.Generator().manual_seed(0),
-                       log_fn=lambda *a: None, device="cpu")
+                       log_fn=lambda *a: None, device="cpu",
+                       eval_task_chunk_size=1)
     assert len(captured["torch"]) == len(captured["jax"]) == 2
     for tcfg, jcfg in zip(captured["torch"], captured["jax"]):
         port = dataclasses.asdict(tcfg)
         ref = dataclasses.asdict(jcfg)
-        assert set(ref) - set(port) == {"task_chunk_size", "chain_chunk"}
-        assert set(port) <= set(ref)
-        assert port == {k: ref[k] for k in port}
+        assert port == ref
         assert port["replacement"] and port["pallas_augment"] is False
         assert port["weight_decay_rate"] == 0.5
 

@@ -1,7 +1,9 @@
 """tests/tiny_model.TinySeg in the port's layers, with the same parameter
 names, so one set of weights loads into both (`params_from_jax`), and the
 same sync-BN axis (`bn_axis_name`); under a spatial context it upsamples
-to the images' global height (`parallel/spatial.py`)."""
+to the images' global height (`parallel/spatial.py`), and under a task
+axis it takes [T, B, H, W, 3] images in the folded layout
+(`layers.task_axis`)."""
 import torch
 import torch.nn as nn
 
@@ -28,7 +30,7 @@ class TorchTinySeg(nn.Module):
 
     def forward(self, images, train=True, final_layer_dropout_rate=None,
                 generator=None, upsample=True):
-        x = (images / 255.0).permute(0, 3, 1, 2)
+        x = layers.fold_nhwc(images / 255.0)
         x = layers.swish(self.batch_normalization(self.conv0(x), train))
         x = layers.swish(self.batch_normalization_1(self.conv1(x), train))
         rate = final_layer_dropout_rate
@@ -39,7 +41,7 @@ class TorchTinySeg(nn.Module):
         x = self.final_layer_weights(x)
         if not upsample:
             return x, None
-        logits = resize_bilinear_align_corners_nchw(
-            x, spatial.global_height(images, 1),
-            images.shape[2]).permute(0, 2, 3, 1)
+        logits = layers.unfold_nchw(resize_bilinear_align_corners_nchw(
+            x, spatial.global_height(images, images.ndim - 3),
+            images.shape[-2]))
         return logits, torch.softmax(logits, dim=-1)

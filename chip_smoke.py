@@ -125,11 +125,16 @@ its phases, one line each (or a few):
      (`python -m torch.distributed.run --standalone --nproc_per_node 2
      chip_smoke.py --mesh-rank DIR`): the CLI with `--mesh_tasks 2`, a
      1x2 (task, data) meta-step with the sync-BN model and 2 data-parallel
-     joint steps at 32 a rank. Every sharded state is held against its
+     joint steps at 32 a rank; the 1x2 step runs twice, its rank's 5
+     slots on a task axis beside the data axis (the default) and chained
+     (`chain_local`). Every sharded state is held against its
      unsharded one (largest gap within MESH_*_BAR of the largest change),
+     the 1x2 step on the task axis against the chained one within
+     MESH_BATCHED_BAR of the chained step's largest change,
      the CLIs' mean IoUs within MESH_IOU_BAR, the backends must be NCCL
      and gloo, and the launches are exact, summed over the ranks: 400 for
-     either CLI, 5 x 29 = 145 a rank on the 1x2 step, 1
+     either CLI, 29 a rank on the 1x2 step on the task axis and 5 x 29 =
+     145 chained, 1
      `fused_light_augment` a rank a step. Prints each run's seconds (a
      meta-step, a joint step), each rank's peak memory and the gaps.
   12. spatial: the image H axis split over ranks
@@ -168,6 +173,24 @@ its phases, one line each (or a few):
      CLI with no strategy flag, 1 meta-iter (118
      launches, derived from the flags). Prints the seconds and peak
      memory of each beside the chained run's.
+  14. traces (between `batched` and `decoders`): the early-stopping
+     traces on a task axis (`early_stopping.
+     make_batched_early_stopping_trace_fn`), each run beside its chained
+     run. (a) UHO through the CLI at full width (the `train` run's model
+     and adaptation flags in float32, from the committed checkpoint's
+     weights; 4 synthetic val tasks, 1 GP config, the CLI's --max_steps 80
+     and --min_steps 0), with no strategy flag and --task_chunk_size 4,
+     then with --chain_eval_chunk: exact launches, derived from the flags
+     and the steps chosen, the seconds a traced task, the median best
+     step, the mean best IoU and the peak memory. (b)
+     `EarlyStoppingEvaluator` in float32 on the `eval` phase's 12
+     held-out tasks, 10 steps, in chunks of 4 and chained, with
+     deterministic algorithms: every trace entry within TRACES_BAR. (c)
+     the UHO and k-shot branches with --mesh_tasks 2 in a world of 2 on
+     the one card over gloo (`python -m torch.distributed.run --standalone
+     --nproc_per_node 2 chip_smoke.py --traces-rank DIR`), 2 val tasks of
+     5 steps: both ranks' (steps, IoU) lists and k-shot mIoUs equal,
+     launches exact summed over the ranks.
 Then the `kernels` JSON line (each kernel's launches on the path it
 carries, and on every path; `ms`, `cold_ms` and `bound_share` at the main
 path's size, every size's beside them), the card's name and power limit
@@ -1591,6 +1614,351 @@ def phase_batched(dev):
     return counts
 
 
+# The `traces` phase: the early-stopping traces of UHO (and of the k-shot
+# curves) on a task axis, `task_chunk_size` tasks a `full_pass` launch a
+# step, against the chained traces in the same call.
+TRACES_CUT = ["--pretrained", "--optimize_update_hyperparms_on_val_set",
+              "--num_val_tasks", "4", "--num_configs_to_sample", "1",
+              "--fss_1000"]
+TRACES_CHUNK = 4           # (a): the val tasks on the task axis at a time
+TRACES_F32_STEPS = 10      # (b): the library evaluator's depth (CLI: 80)
+# (b)'s bar: every trace entry (a val mIoU after a step), batched against
+# chained, in float32 with TF32 off and deterministic algorithms.
+TRACES_BAR = 0.005
+# (c): the mesh branches in a world of 2 (`--mesh_tasks 2`), cut to 2 val
+# tasks of 5 steps.
+TRACES_MESH_ARGV = ["--num_val_tasks", "2", "--max_steps", "5",
+                    "--mesh_tasks", "2"]
+
+
+def _chunk_count(n, chunk, ranks=1):
+    """Launches a step for n tasks shared over `ranks` task ranks (each its
+    contiguous ceil(n / ranks)), in chunks of ceil(chunk / ranks) a rank,
+    summed over the ranks (`mesh.share`); chunk 1 chains them."""
+    k = -(-n // ranks)
+    c = -(-chunk // ranks)
+    return sum(-(-max(0, min(n, (r + 1) * k) - min(n, r * k)) // c)
+               for r in range(ranks))
+
+
+@contextlib.contextmanager
+def _recording(owner, name, record):
+    """`owner.name` wrapped: each call's result appended to `record`, with
+    its wall seconds and the kernels it launched."""
+    import torch
+    real = getattr(owner, name)
+
+    def recorded(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = read_launches()
+        t0 = time.time()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        after = read_launches()
+        record.append({"out": out, "wall": time.time() - t0,
+                       "launches": {k: after[k] - before[k]
+                                    for k in KERNELS}})
+        return out
+
+    setattr(owner, name, recorded)
+    try:
+        yield record
+    finally:
+        setattr(owner, name, real)
+
+
+def _traces_argv(ckpt_dir, chained, uho=True):
+    """The full-width UHO run: run.sh's model and adaptation flags from the
+    checkpoint in `ckpt_dir`, with no strategy flag and --task_chunk_size
+    4, or with --chain_eval_chunk; without `uho`, its flags but UHO's."""
+    argv = [a for a in TRAIN_ARGV
+            if a not in ("--chain_tasks", "--chain_eval_chunk")]
+    cut = argv.index("--task_chunk_size")
+    argv = argv[:cut] + argv[cut + 2:] + (
+        TRACES_CUT if uho else ["--pretrained"]) + [
+        "--task_chunk_size", str(TRACES_CHUNK), "--checkpoint", ckpt_dir]
+    return argv + ["--chain_eval_chunk"] if chained else argv
+
+
+def _expected_uho_launches(args, steps, ranks=1):
+    """`full_pass` launches of a UHO run of the CLI, from its flags and the
+    steps it chose: every (config, split) traces the val tasks for
+    max_steps steps; then the final evaluation adapts 1 train task and the
+    test tasks for the chosen steps, eval_samples times. Each in chunks of
+    --task_chunk_size on a task axis, or one task a launch with
+    --chain_eval_chunk (dropped under a mesh). Returns (total, its terms)."""
+    chunk = 1 if args.chain_eval_chunk and not args.mesh_tasks \
+        else args.task_chunk_size
+    n_test = max(args.synthetic_tasks // 4, 1)
+    splits = 1 if args.fss_1000 else 4
+    val = _chunk_count(args.num_val_tasks, chunk, ranks)
+    final = _chunk_count(1, chunk, ranks) + _chunk_count(n_test, chunk,
+                                                         ranks)
+    total = (args.num_configs_to_sample * splits * val * args.max_steps
+             + args.eval_samples * final * steps)
+    return total, "{} x {} x {} x {} + {} x {} x {}".format(
+        args.num_configs_to_sample, splits, val, args.max_steps,
+        args.eval_samples, final, steps)
+
+
+def _save_pretrained_checkpoint(ckpt_dir, args):
+    """The committed experiments/curve_v2_r4 weights in the CLI's model,
+    saved as the checkpoint --pretrained restores."""
+    from mliis_tpu_torch.cli import args as args_lib
+    from mliis_tpu_torch.meta import inner_loop as il
+    from mliis_tpu_torch.models.efficientlab import EfficientLab
+    from mliis_tpu_torch.utils import checkpoint as ckpt
+    model = EfficientLab(**args_lib.model_kwargs(args))
+    model.load_state_dict(ckpt.load_jax_npz(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), EVAL_CHECKPOINT)))
+    ckpt.save_checkpoint(ckpt_dir, il.init_model_state(
+        model, il.OptimizerConfig("sgd")), 0)
+
+
+def traces_rank(outdir):
+    """One rank of the `traces` phase's world of 2 on the one card (run
+    under `torch.distributed.run`): the UHO and the k-shot branches of the
+    CLI with `--mesh_tasks 2` from the checkpoint in `outdir`; each rank
+    writes the (names, steps, IoUs) its early-stopping evaluations
+    returned, the k-shot (ks, mIoUs), its launches, walls and peaks."""
+    import torch
+    import torch.distributed as dist
+    from mliis_tpu_torch.cli import args as args_lib
+    from mliis_tpu_torch.cli import run_metasegnet
+    from mliis_tpu_torch.meta import uho_eval
+    from mliis_tpu_torch.parallel import mesh as mesh_lib
+    dev = mesh_lib.init_world(MESH_RANKS, "cuda", log_fn=log)
+    rank = dist.get_rank()
+    result = {"rank": rank, "backend": dist.get_backend()}
+    ckpt_dir = os.path.join(outdir, "ckpt")
+    argv = _traces_argv(ckpt_dir, False) + TRACES_MESH_ARGV
+    es, kshot = [], []
+    with _recording(uho_eval.EarlyStoppingEvaluator,
+                    "evaluate_with_early_stopping", es):
+        _, out, launches, wall, peak = _run_cli(argv, dev)
+    steps = re.search(r"UHO estimated lr=\S+ steps=(\d+)", out)
+    result["uho"] = {"es": [list(r["out"]) for r in es],
+                     "es_launches": [r["launches"] for r in es],
+                     "launches": launches, "wall": wall, "peak": peak,
+                     "steps": int(steps.group(1)) if steps else None}
+    workdir = os.path.join(outdir, "kshot{}".format(rank))
+    os.makedirs(workdir)
+    kshot_argv = _traces_argv(ckpt_dir, False, uho=False) + KSHOT_ARGV \
+        + TRACES_MESH_ARGV
+    with _recording(run_metasegnet, "run_k_shot_learning_curves_experiment",
+                    kshot):
+        _, out, launches, wall, peak = _run_cli(kshot_argv, dev,
+                                                cwd=workdir)
+    args = args_lib.argument_parser().parse_args(kshot_argv)
+    result["kshot"] = {"ks_mious": [list(map(list, r["out"]))
+                                    for r in kshot],
+                       "launches": launches, "wall": wall, "peak": peak,
+                       "k_range": args.k_shot_k_range,
+                       "eval_iters": args.eval_iters,
+                       "csv": os.path.exists(os.path.join(
+                           workdir, "k-shot-results.csv"))}
+    with open(os.path.join(outdir, "rank{}.json".format(rank)), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_traces(dev):
+    """The early-stopping traces on a task axis, each run beside its
+    chained run from this call:
+    (a) the full-width UHO path through the CLI (`run_metasegnet.main`
+        with the `train` phase's model and adaptation flags, float32, from
+        the committed checkpoint's weights): 4 synthetic val tasks, 1 GP
+        config, the CLI's --max_steps 80 and --min_steps 0, then the final
+        evaluation at the chosen steps; once with no strategy flag and
+        --task_chunk_size 4 (the 4 traces on a task axis: one `full_pass`
+        launch at B = 4 x 8 a step) and once with --chain_eval_chunk.
+        Exact launches, derived from the flags and the chosen steps;
+        prints the seconds a traced task, the median best step, the mean
+        best IoU and the peak memory of each;
+    (b) `EarlyStoppingEvaluator` in float32 (TF32 off) on the `eval`
+        phase's 12 held-out tasks with the committed checkpoint's weights,
+        cut to TRACES_F32_STEPS steps, in chunks of 4 on a task axis and
+        chained, from the same seed, with deterministic algorithms: every
+        trace entry within TRACES_BAR;
+    (c) the UHO and the k-shot branches of the CLI with --mesh_tasks 2 in a
+        world of 2 on the one card over gloo (`torch.distributed.run`,
+        `traces_rank`), cut to 2 val tasks of 5 steps: both ranks return
+        the same (steps, IoU) lists and k-shot mIoUs, exact launches summed
+        over the ranks.
+    Returns {path: launches}."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mliis_tpu_torch.cli import args as args_lib
+    from mliis_tpu_torch.meta import inner_loop as il
+    from mliis_tpu_torch.meta import uho_eval
+    from mliis_tpu_torch.models.efficientlab import EfficientLab
+    from mliis_tpu_torch.utils.checkpoint import load_jax_npz
+    t_phase = time.time()
+    workdir = tempfile.mkdtemp(prefix="traces_smoke_")
+    counts, failed = {}, []
+
+    def check(path, launches, full_pass, ok, text):
+        expect = {"full_pass": full_pass, "cheap_pass": 0,
+                  "fused_light_augment": 0}
+        counts[path] = launches
+        log("traces[{}]: {} | launches {} (expect {})".format(
+            path, text, launches, expect))
+        if launches != expect or not ok:
+            failed.append(path)
+
+    try:
+        ckpt_dir = os.path.join(workdir, "ckpt")
+        args = args_lib.argument_parser().parse_args(
+            _traces_argv(ckpt_dir, False))
+        _save_pretrained_checkpoint(ckpt_dir, args)
+        runs = {}
+        for name, chained in (("batched", False), ("chained", True)):
+            argv = _traces_argv(ckpt_dir, chained)
+            args = args_lib.argument_parser().parse_args(argv)
+            es = []
+            with _recording(uho_eval.EarlyStoppingEvaluator,
+                            "evaluate_with_early_stopping", es):
+                _, out, launches, wall, peak = _run_cli(argv, dev)
+            steps = int(re.search(r"UHO estimated lr=\S+ steps=(\d+)",
+                                  out).group(1))
+            expect, terms = _expected_uho_launches(args, steps)
+            traced = sum(len(r["out"][0]) for r in es)
+            es_wall = sum(r["wall"] for r in es)
+            best = [s for r in es for s in r["out"][1]]
+            ious = [v for r in es for v in r["out"][2]]
+            runs[name] = dict(best=best, ious=ious, wall=es_wall / traced)
+            check("traces_cli_" + name, launches, expect,
+                  traced == args.num_val_tasks
+                  and all(math.isfinite(v) for v in ious),
+                  "run_metasegnet UHO ({}), b0 rsd={} float32 {}^2, {} val "
+                  "tasks x {} steps, 1 config | wall {:.2f} s | traces "
+                  "{:.2f} s, {:.3f} s a traced task | median best step {} "
+                  "| mean best IoU {:.4f} | chosen steps {} | peak memory "
+                  "{:.2f} GB | expected launches {} = {}".format(
+                      "chained, --chain_eval_chunk" if chained else
+                      "task axis, --task_chunk_size {}".format(
+                          args.task_chunk_size), tuple(args.rsd),
+                      args.image_size, args.num_val_tasks, args.max_steps,
+                      wall, es_wall, es_wall / traced,
+                      int(np.median(best)), float(np.mean(ious)), steps,
+                      peak / 1e9, expect, terms))
+        log("traces: the CLI's strategies | best steps {} (chained {}) | "
+            "best IoUs {} (chained {}) | {:.3f} s a traced task against "
+            "{:.3f} ({:.2f}x)".format(
+                runs["batched"]["best"], runs["chained"]["best"],
+                ["{:.4f}".format(v) for v in runs["batched"]["ious"]],
+                ["{:.4f}".format(v) for v in runs["chained"]["ious"]],
+                runs["batched"]["wall"], runs["chained"]["wall"],
+                runs["chained"]["wall"] / runs["batched"]["wall"]))
+
+        f32 = EfficientLab(rsd=(2, 4), final_layer_dropout_rate=0.5)
+        f32.load_state_dict(load_jax_npz(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), EVAL_CHECKPOINT)))
+        f32.to(dev)
+        opt_cfg = il.OptimizerConfig("sgd")
+        state = il.init_model_state(f32, opt_cfg)
+        traces, walls, runs_f32, nondeterministic = {}, {}, {}, []
+        for chain in (False, True):
+            evaluator = uho_eval.EarlyStoppingEvaluator(
+                f32, il.LossConfig(dice=True, l2=True), opt_cfg,
+                EVAL["store"], device=dev, task_chunk_size=TRACES_CHUNK,
+                chain_chunk=chain)
+            recorded = []
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.time()
+            with _recording(evaluator, "_trace_tasks", recorded), \
+                    deterministic_algorithms(nondeterministic):
+                runs_f32[chain] = evaluator.evaluate_with_early_stopping(
+                    state, torch.Generator(device=dev).manual_seed(EVAL_SEED),
+                    min_steps=0, max_steps=TRACES_F32_STEPS,
+                    inner_batch_size=8, lr=5e-4, aug_rate=0.5,
+                    eval_all_tasks=True)
+            torch.cuda.synchronize()
+            walls[chain] = time.time() - t0
+            counts["traces_f32_" + ("chained" if chain else "batched")] = \
+                read_launches()
+            traces[chain] = np.concatenate([r["out"] for r in recorded])
+        gap = float(np.abs(traces[False] - traces[True]).max())
+        chunks = _chunk_count(EVAL_TASKS, TRACES_CHUNK)
+        check("traces_f32", counts["traces_f32_batched"],
+              chunks * TRACES_F32_STEPS,
+              gap <= TRACES_BAR and counts["traces_f32_chained"][
+                  "full_pass"] == EVAL_TASKS * TRACES_F32_STEPS,
+              "EarlyStoppingEvaluator float32, {} tasks x {} steps, chunks "
+              "of {} against chained (deterministic; ops without a "
+              "deterministic form: {}) | largest trace gap {:.5f} (bar {}) "
+              "| best steps {} (chained {}) | wall {:.2f} s (chained {:.2f}, "
+              "{} launches)".format(
+                  EVAL_TASKS, TRACES_F32_STEPS, TRACES_CHUNK,
+                  nondeterministic or "none", gap, TRACES_BAR,
+                  runs_f32[False][1], runs_f32[True][1], walls[False],
+                  walls[True], counts["traces_f32_chained"]["full_pass"]))
+        del f32, state
+
+        outdir = os.path.join(workdir, "w2")
+        os.makedirs(outdir)
+        args = args_lib.argument_parser().parse_args(
+            _traces_argv(os.path.join(outdir, "ckpt"), False)
+            + TRACES_MESH_ARGV)
+        _save_pretrained_checkpoint(os.path.join(outdir, "ckpt"), args)
+        t0 = time.time()
+        code = _launch_ranks(outdir, timeout=600, entry="--traces-rank")
+        log("traces: the world of 2 ran {:.2f} s, exit code {}".format(
+            time.time() - t0, code))
+        if code != 0:
+            raise AssertionError("the world of 2 failed")
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(outdir, "rank{}.json".format(r))) as f:
+                ranks.append(json.load(f))
+
+        def summed(part):
+            return {k: sum(r[part]["launches"][k] for r in ranks)
+                    for k in KERNELS}
+
+        uho = [r["uho"] for r in ranks]
+        expect, terms = _expected_uho_launches(args, uho[0]["steps"],
+                                               MESH_RANKS)
+        check("traces_mesh_uho", summed("uho"), expect,
+              {r["backend"] for r in ranks} == {"gloo"}
+              and uho[0]["es"] == uho[1]["es"],
+              "run_metasegnet UHO --mesh_tasks 2 on gloo, {} val tasks x {} "
+              "steps | (names, best steps, IoUs) per rank {} | walls {} s | "
+              "peak memory per rank {} GB | expected launches {} = "
+              "{}".format(
+                  args.num_val_tasks, args.max_steps,
+                  [r["es"] for r in uho],
+                  ["{:.2f}".format(r["wall"]) for r in uho],
+                  ["{:.2f}".format(r["peak"] / 1e9) for r in uho], expect,
+                  terms))
+        kshot = [r["kshot"] for r in ranks]
+        n_test = max(args.synthetic_tasks // 4, 1)
+        per_rank = (args.eval_samples * n_test * len(kshot[0]["k_range"])
+                    * kshot[0]["eval_iters"])
+        check("traces_mesh_kshot", summed("kshot"), MESH_RANKS * per_rank,
+              kshot[0]["ks_mious"] == kshot[1]["ks_mious"]
+              and kshot[0]["csv"] and not kshot[1]["csv"],
+              "run_metasegnet k-shot --mesh_tasks 2 on gloo, k {} at {} "
+              "steps on {} test tasks (each rank all of them) | (ks, "
+              "mIoUs) per rank {} | CSV written by rank 0 alone {} | walls "
+              "{} s".format(
+                  kshot[0]["k_range"], kshot[0]["eval_iters"], n_test,
+                  [r["ks_mious"] for r in kshot],
+                  kshot[0]["csv"] and not kshot[1]["csv"],
+                  ["{:.2f}".format(r["wall"]) for r in kshot]))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log("traces: the phase's wall {:.2f} s".format(time.time() - t_phase))
+    if failed:
+        raise AssertionError("the early-stopping traces did not run as "
+                             "expected: {}".format(", ".join(failed)))
+    return counts
+
+
 # The `train` phase's run with EfficientLab's ASPP and skip decoding, cut to
 # 1 meta-iter; then a short run under the profiler on 2 tasks.
 DECODER_ARGV = ["--spatial_pyramid_pooling", "--skip_decoding",
@@ -1820,6 +2188,10 @@ MESH_RANKS = 2
 # equal.
 MESH_TASK_BAR, MESH_DATA_BAR, MESH_JOINT_BAR = 1e-5, 1e-5, 1e-4
 MESH_IOU_BAR = 1e-3
+# The 1x2 step with the rank's slots on a task axis against the same step
+# chained (`chain_local`), as a share of the chained step's largest change:
+# a grouped conv sums in another order than a plain one.
+MESH_BATCHED_BAR = 1e-4
 
 
 def _mesh_meta_setup(dev, bn_axis_name=None):
@@ -1970,23 +2342,30 @@ def mesh_rank(outdir):
     mesh = mesh_lib.make_task_data_mesh(1, MESH_RANKS, dev)
     model, (imgs, msks, counts), cfg, state = _mesh_meta_setup(
         dev, mesh_lib.DATA_AXIS)
-    step = mesh_lib.make_sharded_train_step(model, LossConfig(),
-                                            OptimizerConfig("sgd"), cfg, mesh)
-    draws = lr.draw_meta_step(MESH_STEP_SEED, counts, cfg, 10)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    reset_launches()
-    t0 = time.time()
-    out_state = step(state, imgs, msks, draws, 0.1, 5e-4)
-    torch.cuda.synchronize()
-    launches = read_launches()
-    result["step_1x2"] = {"launches": summed(launches),
-                          "rank_launches": launches,
-                          "wall": time.time() - t0,
-                          "peak": torch.cuda.max_memory_allocated(dev)}
-    if rank == 0:
-        states["step_1x2"] = _cpu_state(out_state)
-    del model, state, out_state, imgs, msks, step, draws
+    # The rank's slots on a task axis beside the data axis (the default),
+    # then one after another (`chain_local`), from the same draws.
+    for name, chain_local in (("step_1x2", False),
+                              ("step_1x2_chained", True)):
+        step = mesh_lib.make_sharded_train_step(
+            model, LossConfig(), OptimizerConfig("sgd"), cfg, mesh,
+            chain_local=chain_local)
+        draws = lr.draw_meta_step(MESH_STEP_SEED, counts, cfg, 10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.time()
+        out_state = step(state, imgs, msks, draws, 0.1, 5e-4)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        result[name] = {"launches": summed(launches),
+                        "rank_launches": launches,
+                        "wall": time.time() - t0,
+                        "peak": torch.cuda.max_memory_allocated(dev)}
+        if rank == 0:
+            states[name] = _cpu_state(out_state)
+        del out_state, step, draws
+        torch.cuda.empty_cache()
+    del model, state, imgs, msks
     torch.cuda.empty_cache()
 
     jmesh = mesh_lib.make_data_mesh(MESH_RANKS, dev)
@@ -2175,24 +2554,41 @@ def phase_mesh(dev):
                   [r["cli"]["rank_launches"]["full_pass"] for r in ranks],
                   ["{:.2f}".format(r["cli"]["peak"] / 1e9) for r in ranks]))
 
-        s12 = ranks[0]["step_1x2"]
-        gap = _state_gap(states["step_1x2"], refs["unsharded"], start)
-        check("mesh_step_1x2", s12["launches"],
-              {"full_pass": MESH_RANKS * 5 * (MESH_STEP_ITERS - 1),
-               "cheap_pass": 0,
-               "fused_light_augment": 0},
-              gap[1] <= MESH_DATA_BAR and all(
-                  r["step_1x2"]["rank_launches"]["full_pass"]
-                  == 5 * (MESH_STEP_ITERS - 1)
-                  for r in ranks),
-              "1x2 (task, data) meta-step, sync-BN | wall {} s (unsharded "
-              "{:.3f}, task mesh of 1 {:.3f}) | largest gap to the "
-              "unsharded step {:.3g} ({:.3g} of its largest change; bar "
-              "{}) | peak memory per rank {} GB".format(
-                  ["{:.3f}".format(r["step_1x2"]["wall"]) for r in ranks],
-                  walls["unsharded"], walls["w1"], gap[0], gap[1],
-                  MESH_DATA_BAR, ["{:.2f}".format(r["step_1x2"]["peak"] / 1e9)
-                                  for r in ranks]))
+        # A rank's 5 slots on a task axis: one launch an augmented step;
+        # chained, one a slot and step.
+        chained_gap = _state_gap(states["step_1x2"],
+                                 states["step_1x2_chained"], start)
+        for name, per_rank, what in (
+                ("step_1x2", MESH_STEP_ITERS - 1, "slots on a task axis"),
+                ("step_1x2_chained", 5 * (MESH_STEP_ITERS - 1),
+                 "slots chained, chain_local")):
+            gap = _state_gap(states[name], refs["unsharded"], start)
+            ok = gap[1] <= MESH_DATA_BAR and all(
+                r[name]["rank_launches"]["full_pass"] == per_rank
+                for r in ranks)
+            if name == "step_1x2":
+                ok = ok and chained_gap[1] <= MESH_BATCHED_BAR
+            check("mesh_" + name, ranks[0][name]["launches"],
+                  {"full_pass": MESH_RANKS * per_rank, "cheap_pass": 0,
+                   "fused_light_augment": 0}, ok,
+                  "1x2 (task, data) meta-step, sync-BN, {} | wall {} s "
+                  "(unsharded {:.3f}, task mesh of 1 {:.3f}) | largest gap "
+                  "to the unsharded step {:.3g} ({:.3g} of its largest "
+                  "change; bar {}) | peak memory per rank {} GB | per-rank "
+                  "full_pass launches {}".format(
+                      what, ["{:.3f}".format(r[name]["wall"]) for r in ranks],
+                      walls["unsharded"], walls["w1"], gap[0], gap[1],
+                      MESH_DATA_BAR, ["{:.2f}".format(r[name]["peak"] / 1e9)
+                                      for r in ranks],
+                      [r[name]["rank_launches"]["full_pass"]
+                       for r in ranks]))
+        log("mesh: the 1x2 step on a task axis against chain_local | "
+            "largest gap {:.3g} ({:.3g} of the chained step's largest "
+            "change; bar {}) | s a step per rank {} against {}".format(
+                chained_gap[0], chained_gap[1], MESH_BATCHED_BAR,
+                ["{:.3f}".format(r["step_1x2"]["wall"]) for r in ranks],
+                ["{:.3f}".format(r["step_1x2_chained"]["wall"])
+                 for r in ranks]))
 
         js = ranks[0]["joint"]
         gap = _state_gap(states["joint"], joint_ref, jstart)
@@ -2542,6 +2938,7 @@ def main() -> int:
     by_path["joint"] = phase_joint(dev)
     by_path.update(phase_train(dev))
     by_path.update(phase_batched(dev))
+    by_path.update(phase_traces(dev))
     by_path.update(phase_decoders(dev))
     by_path.update(phase_mesh(dev))
     by_path.update(phase_spatial(dev))
@@ -2566,7 +2963,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    RANK_ENTRIES = {"--mesh-rank": mesh_rank, "--spatial-rank": spatial_rank}
+    RANK_ENTRIES = {"--mesh-rank": mesh_rank, "--spatial-rank": spatial_rank,
+                    "--traces-rank": traces_rank}
     if sys.argv[1:2] and sys.argv[1] in RANK_ENTRIES:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(RANK_ENTRIES[sys.argv[1]](sys.argv[2]))

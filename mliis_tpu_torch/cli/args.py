@@ -152,9 +152,10 @@ def argument_parser():
              'tests / environments without the dataset).')
     add('--synthetic_tasks', type=int, default=16)
     add('--task_chunk_size', type=int, default=2,
-        help='Evaluation tasks adapted and predicted together on a task '
-             'axis (one augmentation launch and one forward and backward '
-             'an inner step for the chunk).')
+        help='Evaluation tasks adapted and predicted (and UHO\'s '
+             'early-stopping traces run) together on a task axis (one '
+             'augmentation launch and one forward and backward an inner '
+             'step for the chunk).')
     add('--pallas_augment', choices=['auto', 'on', 'off'], default='auto',
         help='auto and on: the augmentation kernels (full_pass, or '
              'cheap_pass on the split route); off: their plain PyTorch '
@@ -171,8 +172,9 @@ def argument_parser():
              'activations at a time); with --mesh_tasks, each rank\'s '
              'slots.')
     add('--chain_eval_chunk', action='store_true',
-        help='Run each evaluation chunk\'s tasks one after another instead '
-             'of on a task axis.')
+        help='Run each evaluation chunk\'s tasks (and the early-stopping '
+             'traces) one after another instead of on a task axis; under '
+             'a mesh UHO\'s evaluator drops it, as the JAX CLI does.')
     add('--mesh_tasks', type=int, default=0,
         help='Shard the meta-batch and the evaluations\' tasks over this '
              'many ranks along a "task" mesh axis: one process a rank, '

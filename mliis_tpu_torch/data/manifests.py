@@ -28,9 +28,21 @@ def _read_manifest(name: str) -> List[str]:
         return [line.rstrip("\n") for line in f]
 
 
-TEST_TASK_IDS = _read_manifest("fss_test_set.txt")
-TRAIN_TASK_IDS = _read_manifest("fss_train_set.txt")
-FP_K_TEST_TASK_IDS = _read_manifest("fp-k_test_set.txt")
+def get_fss_test_set() -> List[str]:
+    return _read_manifest("fss_test_set.txt")
+
+
+def get_fss_train_set() -> List[str]:
+    return _read_manifest("fss_train_set.txt")
+
+
+def get_fp_k_test_set() -> List[str]:
+    return _read_manifest("fp-k_test_set.txt")
+
+
+TEST_TASK_IDS = get_fss_test_set()
+TRAIN_TASK_IDS = get_fss_train_set()
+FP_K_TEST_TASK_IDS = get_fp_k_test_set()
 
 
 def assert_train_test_split(train: Sequence[str], test: Sequence[str]) -> None:

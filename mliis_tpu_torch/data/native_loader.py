@@ -61,6 +61,12 @@ def native_loader_available() -> bool:
     return _load_library() is not None
 
 
+def native_writer_available() -> bool:
+    """True where the library loads and has the shard writer."""
+    lib = _load_library()
+    return lib is not None and hasattr(lib, "tl_write_shard")
+
+
 def reader_name() -> str:
     """"native" or "Python": the codec the functions below use."""
     return "native" if native_loader_available() else "Python"

@@ -192,3 +192,9 @@ def write_segmentation_shard(path: str, images: np.ndarray,
             "mask": mask.tobytes()}))
     write_tfrecord_file(path, records, gzipped=True)
 
+
+def count_examples_in_tfrecords(paths: Sequence[str]) -> int:
+    """The number of records in the shards `paths` (gzipped where the name
+    ends in "gzip")."""
+    return sum(len(read_tfrecord_file(path, gzipped=path.endswith("gzip")))
+               for path in paths)

@@ -6,7 +6,8 @@ not improved for `patience` evaluations, and `walk_trace` applies it to a
 per-step metric trace, finding what stopping live would find. The trace
 itself, which the JAX package computes as one scanned program, is a loop
 of the port's `sgd_step` here, with the val set's mean hard IoU taken
-after every step.
+after every step; `make_batched_early_stopping_trace_fn` traces T tasks
+at once on a task axis, as the JAX package vmaps its trace.
 """
 import operator
 from typing import Callable, Optional, Tuple
@@ -16,8 +17,10 @@ import torch
 
 from mliis_tpu_torch.meta import episodes
 from mliis_tpu_torch.meta.inner_loop import (LossConfig, ModelState,
-                                             OptimizerConfig, load_state,
-                                             sgd_step)
+                                             OptimizerConfig,
+                                             batched_sgd_step, load_state,
+                                             sgd_step, step_batches,
+                                             task_axis_state, task_forward)
 from mliis_tpu_torch.ops.metrics import batched_hard_iou
 
 
@@ -73,13 +76,16 @@ def make_early_stopping_trace_fn(model: torch.nn.Module,
                                  opt_config: OptimizerConfig, *,
                                  augment: bool = True,
                                  weight_decay_rate: float = 1.0,
+                                 precompute_augment: bool = False,
                                  pallas_augment: Optional[bool] = None
                                  ) -> Callable:
     """trace(state, support_images_u8, support_masks_u8, val_images_u8,
     val_masks_u8, idx_matrix, generator, lr, drop_rate, aug_rate) -> [steps]
     val mean hard IoU after each inner step, one step per row of
     idx_matrix [steps, batch] (indices into the support set). The module
-    is loaded with `state` and trained in place; `state` is untouched."""
+    is loaded with `state` and trained in place; `state` is untouched.
+    `precompute_augment` augments every step's batch before the first
+    step, staged in bf16, as `inner_loop.make_adapt_fn` does."""
     step_fn = sgd_step(model, loss_config, opt_config, weight_decay_rate)
     kernels = pallas_augment is not False
 
@@ -90,16 +96,79 @@ def make_early_stopping_trace_fn(model: torch.nn.Module,
         opt = state.opt
         val_images = val_images_u8.float()
         val_masks = episodes.onehot_mask(val_masks_u8)
+
+        def batch(i):
+            return episodes.assemble_batch(
+                support_images_u8, support_masks_u8, idx_matrix[i],
+                generator, aug_rate=aug_rate, augment=augment,
+                kernels=kernels)
+
         trace = []
-        for idx in idx_matrix:
-            images, masks = episodes.assemble_batch(
-                support_images_u8, support_masks_u8, idx, generator,
-                aug_rate=aug_rate, augment=augment, kernels=kernels)
+        for images, masks in step_batches(batch, idx_matrix.shape[0],
+                                          precompute_augment and augment):
             opt, _ = step_fn(opt, images, masks, generator, lr, drop_rate)
             with torch.no_grad():
                 probs = model(val_images, train=False)[1]
                 ious = batched_hard_iou((probs > 0.5).float(), val_masks)
             trace.append(torch.nanmean(ious))
         return torch.stack(trace)
+
+    return trace_fn
+
+
+def make_batched_early_stopping_trace_fn(model: torch.nn.Module,
+                                         loss_config: LossConfig,
+                                         opt_config: OptimizerConfig, *,
+                                         augment: bool = True,
+                                         weight_decay_rate: float = 1.0,
+                                         precompute_augment: bool = False,
+                                         pallas_augment: Optional[bool] = None
+                                         ) -> Callable:
+    """The trace of T tasks on a task axis (the JAX package's trace under
+    `jax.vmap`): trace(states, support_images_u8 [T, S, H, W, 3],
+    support_masks_u8 [T, S, H, W], val_images_u8 [T, V, H, W, 3],
+    val_masks_u8 [T, V, H, W], idx_matrix [T, steps, batch], generators,
+    lr, drop_rate, aug_rate) -> [T, steps]. `states` is stacked
+    (`inner_loop.stack_states`) and left untouched; the module's own
+    parameters are not used. Each step gathers and augments the T batches
+    in one pass (one `full_pass` launch at T x batch), takes one step of
+    `inner_loop.batched_sgd_step`, then probes: one eval-mode forward of
+    the T val sets and per task the nanmean of its hard IoUs. Task t draws
+    only from generators[t], in the order the one-task trace draws from
+    its generator, so each row is that task's one-task trace up to float
+    rounding."""
+    params_order = [k for k, _ in model.named_parameters()]
+    step_fn = batched_sgd_step(model, loss_config, opt_config,
+                               weight_decay_rate)
+    kernels = pallas_augment is not False
+
+    def trace_fn(states: ModelState, support_images_u8, support_masks_u8,
+                 val_images_u8, val_masks_u8, idx_matrix, generators, lr,
+                 drop_rate, aug_rate) -> torch.Tensor:
+        generators = list(generators)
+        params, buffers, opt = task_axis_state(
+            states, support_images_u8.device, params_order)
+        val_images = val_images_u8.float()
+        val_masks = episodes.onehot_mask(val_masks_u8)
+        t = val_images.shape[0]
+
+        def batch(i):
+            return episodes.assemble_batches(
+                support_images_u8, support_masks_u8, idx_matrix[:, i],
+                generators, aug_rate=aug_rate, augment=augment,
+                kernels=kernels)
+
+        trace = []
+        for images, masks in step_batches(batch, idx_matrix.shape[1],
+                                          precompute_augment and augment):
+            opt, _ = step_fn(params, buffers, opt, images, masks,
+                             generators, lr, drop_rate)
+            with torch.no_grad():
+                probs = task_forward(model, params, buffers, val_images,
+                                     train=False)[1]
+                ious = batched_hard_iou((probs > 0.5).float().flatten(0, 1),
+                                        val_masks.flatten(0, 1))
+            trace.append(torch.nanmean(ious.reshape(t, -1), dim=1))
+        return torch.stack(trace, dim=1)
 
     return trace_fn

@@ -182,17 +182,20 @@ def assemble_batches(support_images_u8: torch.Tensor,
                      support_masks_u8: torch.Tensor, idx: torch.Tensor,
                      generators: Optional[Sequence[torch.Generator]] = None,
                      aug_rate: Optional[float] = None, augment: bool = True,
-                     kernels: bool = True
+                     kernels: bool = True, key_offset: int = 0,
+                     key_total: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`assemble_batch` of T tasks at once: support_images_u8 [T, S, H,
     W, 3], support_masks_u8 [T, S, H, W], idx [T, B]; task t's batch
     gathered from its own support set and augmented with draws from
-    generators[t], all T batches in one pass (`augment.augment_batches`).
-    Returns images [T, B, H, W, 3] and one-hot masks [T, B, H, W, 2]."""
+    generators[t], all T batches in one pass (`augment.augment_batches`;
+    `key_offset` and `key_total` as for `assemble_batch`, each task's
+    draws made for its whole batch). Returns images [T, B, H, W, 3] and
+    one-hot masks [T, B, H, W, 2]."""
     images = gather_tasks(support_images_u8, idx).float()
     masks = onehot_mask(gather_tasks(support_masks_u8, idx))
     if not augment:
         return images, masks
     prob_original = None if aug_rate is None else 1.0 - aug_rate
     return augment_batches(generators, images, masks, prob_original,
-                           kernels)
+                           kernels, key_offset, key_total)

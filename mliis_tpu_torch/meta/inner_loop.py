@@ -39,10 +39,12 @@ batch), runs one forward and backward of the module with the stacked
 params and running stats substituted (`torch.func.functional_call`
 under `layers.task_axis`), takes the sum of the T tasks' losses, whose
 gradient is each task's own, and updates the stacked params in place
-(the optimizer's step count is shared). Task t draws its augmentation,
-dropout and drop-connect from generators[t], in the order `adapt` draws
-them from its one generator, so task t adapts as `adapt` would adapt it
-alone, up to float rounding.
+(the optimizer's step count is shared; `batched_sgd_step`, which the
+early-stopping traces share). Task t draws its augmentation, dropout and
+drop-connect from generators[t], in the order `adapt` draws them from
+its one generator, so task t adapts as `adapt` would adapt it alone, up
+to float rounding. With a `DataShardSpec` each task's batch splits over
+the data axis as `adapt` splits its one task's.
 """
 import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
@@ -212,6 +214,34 @@ def sgd_step(model: torch.nn.Module, loss_config: LossConfig,
     return step
 
 
+def step_batches(batch: Callable[[int], Tuple[torch.Tensor, torch.Tensor]],
+                 steps: int, precompute: bool):
+    """The batches batch(0), ..., batch(steps - 1): each made when its step
+    takes it, or with `precompute` all made before the first step and
+    staged in bf16 (the JAX package's memory-bound variant)."""
+    if not precompute:
+        return (batch(i) for i in range(steps))
+    staged = [tuple(t.to(torch.bfloat16) for t in batch(i))
+              for i in range(steps)]
+    return (tuple(t.float() for t in b) for b in staged)
+
+
+def shard_batch_indices(idx_matrix: torch.Tensor, generators,
+                        data_shard: Optional[DataShardSpec]):
+    """This data shard's part of an index matrix [..., steps, batch] (one
+    task's, or T tasks' stacked): (its columns, their first position, the
+    whole batch, and for each task's generator the stream the model draws
+    dropout and drop-connect from, `episodes.shard_generator`). Without a
+    shard: the whole matrix, 0, None and `generators`."""
+    if data_shard is None:
+        return idx_matrix, 0, None, list(generators)
+    total = idx_matrix.shape[-1]
+    local = total // data_shard.num_shards
+    offset = mesh_lib.axis_index(data_shard.axis_name) * local
+    return (idx_matrix[..., offset:offset + local], offset, total,
+            [episodes.shard_generator(g, offset) for g in generators])
+
+
 def make_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
                   opt_config: OptimizerConfig,
                   weight_decay_rate: float = 1.0, augment: bool = True,
@@ -240,13 +270,8 @@ def make_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
         load_state(model, state)
         opt = state.opt
         lr_list = [float(v) for v in torch.as_tensor(lrs, dtype=torch.float32)]
-        offset, total, model_generator = 0, None, generator
-        if data_shard is not None:
-            total = idx_matrix.shape[1]
-            local = total // data_shard.num_shards
-            offset = mesh_lib.axis_index(data_shard.axis_name) * local
-            idx_matrix = idx_matrix[:, offset:offset + local]
-            model_generator = episodes.shard_generator(generator, offset)
+        idx_matrix, offset, total, (model_generator,) = \
+            shard_batch_indices(idx_matrix, [generator], data_shard)
 
         def batch(i):
             return episodes.assemble_batch(
@@ -255,16 +280,9 @@ def make_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
                 kernels=pallas_augment is not False, key_offset=offset,
                 key_total=total)
 
-        staged = None
-        if precompute_augment and augment:
-            staged = [tuple(t.to(torch.bfloat16) for t in batch(i))
-                      for i in range(len(lr_list))]
         losses = []
-        for i, lr in enumerate(lr_list):
-            if staged is None:
-                images, masks = batch(i)
-            else:
-                images, masks = (t.float() for t in staged[i])
+        for lr, (images, masks) in zip(lr_list, step_batches(
+                batch, len(lr_list), precompute_augment and augment)):
             opt, loss = step_fn(opt, images, masks, model_generator, lr,
                                 drop_rate)
             losses.append(loss)
@@ -308,6 +326,58 @@ def task_forward(model: torch.nn.Module, params: Tree, buffers: Tree,
                                           (images,), kwargs)
 
 
+def task_axis_state(states: ModelState, device, params_order: Sequence[str]
+                    ) -> Tuple[Tree, Tree, OptState]:
+    """A stacked state's params (leaves that require grad, in the module's
+    order), running stats and optimizer slots, copied onto `device` for a
+    task axis's steps to update in place."""
+    params = {k: states.params[k].detach().to(device, copy=True)
+              .requires_grad_(True) for k in params_order}
+    buffers = {k: v.detach().to(device, copy=True)
+               for k, v in states.batch_stats.items()}
+    opt = OptState(states.opt.step.to(device),
+                   {k: v.to(device) for k, v in states.opt.v.items()})
+    return params, buffers, opt
+
+
+def batched_sgd_step(model: torch.nn.Module, loss_config: LossConfig,
+                     opt_config: OptimizerConfig,
+                     weight_decay_rate: float = 1.0,
+                     data_axis_name: Optional[str] = None):
+    """`sgd_step` on a task axis: step(params, buffers, opt, images [T, B,
+    H, W, 3], masks [T, B, H, W, 2], generators, lr, drop_rate) -> (opt,
+    losses [T]). One forward and backward of the module with the stacked
+    `params` and `buffers` substituted; the sum of the T tasks' losses,
+    whose gradient is each task's own; the stacked params updated in
+    place. With `data_axis_name` each task's batch is this shard's part:
+    the losses sum over the axis and the gradients are averaged over it,
+    as in `make_loss_and_grad`."""
+
+    def step(params: Tree, buffers: Tree, opt: OptState, images, masks,
+             generators, lr, drop_rate) -> Tuple[OptState, torch.Tensor]:
+        plist = list(params.values())
+        if weight_decay_rate != 1.0:
+            with torch.no_grad():
+                torch._foreach_mul_(plist, weight_decay_rate)
+        logits, probs = task_forward(
+            model, params, buffers, images, train=True,
+            final_layer_dropout_rate=drop_rate, generator=generators)
+        loss = losses_lib.segmentation_losses(
+            logits, probs, masks, params,
+            label_smoothing=loss_config.label_smoothing,
+            dice=loss_config.dice,
+            binary_iou_loss=loss_config.binary_iou_loss,
+            l2=loss_config.l2, l1=loss_config.l1, darc1=loss_config.darc1,
+            data_axis_name=data_axis_name)
+        grads = torch.autograd.grad(loss.sum(), plist)
+        if data_axis_name is not None:
+            grads = mesh_lib.pmean_grads(grads, data_axis_name)
+        return (apply_optimizer_(plist, grads, opt, lr, opt_config),
+                loss.detach())
+
+    return step
+
+
 def make_batched_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
                           opt_config: OptimizerConfig,
                           weight_decay_rate: float = 1.0,
@@ -326,59 +396,40 @@ def make_batched_adapt_fn(model: torch.nn.Module, loss_config: LossConfig,
     batch], generators: T generators, lrs: [steps], the same for every
     task. The input state may lie on any device and is left untouched;
     the adapted state lies on the support images' device. The module's
-    own parameters are not used. A task axis does not compose with a
-    mesh data axis (`data_shard`: NotImplementedError)."""
-    if data_shard is not None:
-        raise NotImplementedError("a task axis with a mesh data axis")
+    own parameters are not used. `data_shard` splits every task's batch
+    over a bound mesh data axis, task by task as `make_adapt_fn` splits
+    its one task's (not with precompute_augment)."""
+    if data_shard is not None and precompute_augment:
+        raise ValueError("data_shard + precompute_augment is not supported")
     params_order = [k for k, _ in model.named_parameters()]
+    step_fn = batched_sgd_step(model, loss_config, opt_config,
+                               weight_decay_rate,
+                               data_shard.axis_name if data_shard else None)
 
     def adapt(states: ModelState, support_images_u8, support_masks_u8,
               idx_matrix, generators, lrs, drop_rate=None, aug_rate=None
               ) -> Tuple[ModelState, torch.Tensor]:
         generators = list(generators)
         n_tasks = len(generators)
-        dev = support_images_u8.device
-        params = {k: states.params[k].detach().to(dev, copy=True)
-                  .requires_grad_(True) for k in params_order}
-        buffers = {k: v.detach().to(dev, copy=True)
-                   for k, v in states.batch_stats.items()}
-        plist = list(params.values())
-        opt = OptState(states.opt.step.to(dev),
-                       {k: v.to(dev) for k, v in states.opt.v.items()})
+        params, buffers, opt = task_axis_state(
+            states, support_images_u8.device, params_order)
         lr_list = [float(v) for v in torch.as_tensor(lrs, dtype=torch.float32)]
+        idx_matrix, offset, total, model_generators = shard_batch_indices(
+            idx_matrix, generators, data_shard)
 
         def batch(i):
             return episodes.assemble_batches(
                 support_images_u8, support_masks_u8, idx_matrix[:, i],
                 generators, aug_rate=aug_rate, augment=augment,
-                kernels=pallas_augment is not False)
+                kernels=pallas_augment is not False, key_offset=offset,
+                key_total=total)
 
-        staged = None
-        if precompute_augment and augment:
-            staged = [tuple(t.to(torch.bfloat16) for t in batch(i))
-                      for i in range(len(lr_list))]
         losses = []
-        for i, lr in enumerate(lr_list):
-            if staged is None:
-                images, masks = batch(i)
-            else:
-                images, masks = (t.float() for t in staged[i])
-            if weight_decay_rate != 1.0:
-                with torch.no_grad():
-                    torch._foreach_mul_(plist, weight_decay_rate)
-            logits, probs = task_forward(
-                model, params, buffers, images, train=True,
-                final_layer_dropout_rate=drop_rate, generator=generators)
-            loss = losses_lib.segmentation_losses(
-                logits, probs, masks, params,
-                label_smoothing=loss_config.label_smoothing,
-                dice=loss_config.dice,
-                binary_iou_loss=loss_config.binary_iou_loss,
-                l2=loss_config.l2, l1=loss_config.l1,
-                darc1=loss_config.darc1)
-            grads = torch.autograd.grad(loss.sum(), plist)
-            opt = apply_optimizer_(plist, grads, opt, lr, opt_config)
-            losses.append(loss.detach())
+        for lr, (images, masks) in zip(lr_list, step_batches(
+                batch, len(lr_list), precompute_augment and augment)):
+            opt, loss = step_fn(params, buffers, opt, images, masks,
+                                model_generators, lr, drop_rate)
+            losses.append(loss)
         adapted = ModelState({k: p.detach() for k, p in params.items()},
                              buffers, opt)
         if not losses:   # zero steps: a FOMAML* task of one inner step

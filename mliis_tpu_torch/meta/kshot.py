@@ -64,7 +64,8 @@ class EvaluatorCache:
             ev = EarlyStoppingEvaluator(
                 self.model, self.loss_config, self.opt_config, self.store,
                 num_shots=num_shots, test_shots=test_shots, augment=True,
-                pallas_augment=self.pallas_augment, device=self.device)
+                task_chunk_size=1, pallas_augment=self.pallas_augment,
+                device=self.device)
             self._es[key] = ev
             self.constructions += 1
         return ev

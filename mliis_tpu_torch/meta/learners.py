@@ -198,17 +198,21 @@ def make_per_task_fn(model, loss_config: LossConfig,
 
 def make_batched_per_task_fn(model, loss_config: LossConfig,
                              opt_config: OptimizerConfig,
-                             config: MetaTrainConfig):
+                             config: MetaTrainConfig,
+                             data_shard: Optional[DataShardSpec] = None):
     """`make_per_task_fn` on a task axis: per_tasks(state, task_images_u8
     [T, n, H, W, 3], task_masks_u8 [T, n, H, W], draws (T TaskDraws),
     generators (T), lr) -> (updates, finals), both stacked [T, ...]: task
     t from `state` with draws[t] and generators[t]. The FOMAML* tail step
-    runs on the task axis too: every task's tail has tail_shots samples."""
+    runs on the task axis too: every task's tail has tail_shots samples.
+    `data_shard` splits every task's augmented inner batches over a bound
+    mesh data axis; the tail step runs whole on every data rank, as in
+    `make_per_task_fn`."""
     adapt = make_batched_adapt_fn(
         model, loss_config, opt_config,
         weight_decay_rate=config.weight_decay_rate, augment=config.augment,
         precompute_augment=config.precompute_augment,
-        pallas_augment=config.pallas_augment)
+        pallas_augment=config.pallas_augment, data_shard=data_shard)
     gather = episodes.gather_tasks
 
     def lr_array(lr):

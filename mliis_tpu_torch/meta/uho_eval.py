@@ -10,16 +10,17 @@ The port of the JAX package's `meta/uho_eval.py`:
     aug_rate, inner_batch_size} with the above as its objective; writes the
     per-config CSV (with `_{shots}-shot` before its extension) and returns
     (best lr, median steps).
-The traces run one task after another on the evaluator's device (the JAX
-package vmaps them over chunks of tasks); the median-step re-evaluation
-runs `task_chunk_size` tasks at a time on a task axis, or one after
-another with `chain_chunk` (`evaluate.GeckoEvaluator`). An evaluation
-draws
-one seed from the generator passed in, and its task j draws from its own
-generator (`episodes.slot_generator`). With a mesh each task rank traces
-its share of the tasks and the (steps, IoU) pairs are all-reduced into
-place, so every rank walks the same GP search; rank 0 alone writes its
-CSV.
+The traces run `task_chunk_size` tasks at a time on a task axis
+(`early_stopping.make_batched_early_stopping_trace_fn`, the JAX package's
+vmap of its trace), or one after another with `chain_chunk`; so does the
+median-step re-evaluation (`evaluate.GeckoEvaluator`). An evaluation
+draws one seed from the generator passed in, and its task j draws from
+its own generator (`episodes.slot_generator`), so both strategies trace
+the same function of the same draws. With a mesh each task rank traces
+its share of the tasks in chunks of ceil(task_chunk_size / task ranks)
+and the (steps, IoU) pairs are all-reduced into place, so every rank
+walks the same GP search; rank 0 alone writes its CSV. As in the JAX
+package, a mesh drops `chain_chunk`.
 """
 import os
 import random as pyrandom
@@ -31,19 +32,21 @@ import torch
 from mliis_tpu_torch.data.task_store import TaskStore
 from mliis_tpu_torch.device import resolve_device
 from mliis_tpu_torch.meta import episodes, uho
-from mliis_tpu_torch.meta.early_stopping import (make_early_stopping_trace_fn,
-                                                 walk_trace)
+from mliis_tpu_torch.meta.early_stopping import (
+    make_batched_early_stopping_trace_fn, make_early_stopping_trace_fn,
+    walk_trace)
 from mliis_tpu_torch.meta.evaluate import (EvalConfig, GeckoEvaluator,
                                            draw_episode)
 from mliis_tpu_torch.meta.inner_loop import (LossConfig, ModelState,
-                                             OptimizerConfig)
+                                             OptimizerConfig, stack_states)
 from mliis_tpu_torch.parallel import mesh as mesh_lib
 
 
 class EarlyStoppingEvaluator:
     """Early-stopping evaluation over a TaskStore held on `device` (the
     card unless the caller asks for the CPU); with a `mesh`, its tasks
-    shard over the task axis."""
+    shard over the task axis (and `chain_chunk` is dropped, as in the JAX
+    package)."""
 
     def __init__(self, model: torch.nn.Module, loss_config: LossConfig,
                  opt_config: OptimizerConfig, store: TaskStore,
@@ -55,7 +58,7 @@ class EarlyStoppingEvaluator:
                  chain_chunk: bool = False):
         self.device = resolve_device(device)
         self.task_chunk_size = task_chunk_size
-        self.chain_chunk = chain_chunk
+        self.chain_chunk = chain_chunk and mesh is None
         self.mesh = mesh
         self.model = model.to(self.device)
         self.loss_config = loss_config
@@ -69,31 +72,46 @@ class EarlyStoppingEvaluator:
         self.patience = patience
         self.pallas_augment = pallas_augment
         self._images, self._masks, self._counts = store.to_torch(self.device)
-        self._trace = make_early_stopping_trace_fn(
-            model, loss_config, opt_config, augment=augment,
-            weight_decay_rate=weight_decay_rate,
-            pallas_augment=pallas_augment)
+        kw = dict(augment=augment, weight_decay_rate=weight_decay_rate,
+                  pallas_augment=pallas_augment)
+        self._trace = make_early_stopping_trace_fn(model, loss_config,
+                                                   opt_config, **kw)
+        self._batched_trace = make_batched_early_stopping_trace_fn(
+            model, loss_config, opt_config, **kw)
         # Median-step re-evaluation evaluators, keyed by their EvalConfig:
         # the GP search asks for the same step counts again and again.
         self._gecko_cache: Dict[EvalConfig, GeckoEvaluator] = {}
 
-    def _trace_task(self, state: ModelState, index: int, generator,
-                    max_steps: int, inner_batch_size: int, lr: float,
-                    drop_rate: float, aug_rate) -> np.ndarray:
-        """One task's [max_steps] val mIoU trace, drawn from `generator`."""
+    def _trace_tasks(self, state: ModelState, rows: List[int],
+                     generators: List[torch.Generator], max_steps: int,
+                     inner_batch_size: int, lr: float, drop_rate: float,
+                     aug_rate) -> np.ndarray:
+        """The [len(rows), max_steps] val mIoU traces of the store rows
+        `rows`, row k's episode drawn from generators[k]: one after
+        another with `chain_chunk`, else together on a task axis."""
         cfg = EvalConfig(num_shots=self.num_shots,
                          test_shots=self.test_shots,
                          inner_batch_size=inner_batch_size,
                          inner_iters=max_steps, replacement=self.replacement)
-        draws = draw_episode(generator, self._counts[index], cfg,
-                             self._images.shape[1])
-        support = draws.shot_idx[draws.support_rel]
-        val = draws.shot_idx[draws.query_rel]
-        images, masks = self._images[index], self._masks[index]
-        trace = self._trace(state, images[support], masks[support],
-                            images[val], masks[val], draws.idx_matrix,
-                            generator, lr, drop_rate, aug_rate)
-        return trace.cpu().numpy()
+        parts = []
+        for row, g in zip(rows, generators):
+            draws = draw_episode(g, self._counts[row], cfg,
+                                 self._images.shape[1])
+            support = draws.shot_idx[draws.support_rel]
+            val = draws.shot_idx[draws.query_rel]
+            images, masks = self._images[row], self._masks[row]
+            parts.append((images[support], masks[support], images[val],
+                          masks[val], draws.idx_matrix))
+        if self.chain_chunk:
+            traces = torch.stack([self._trace(state, *part, g, lr, drop_rate,
+                                              aug_rate)
+                                  for part, g in zip(parts, generators)])
+        else:
+            traces = self._batched_trace(
+                stack_states([state] * len(rows)),
+                *(torch.stack(t) for t in zip(*parts)), generators, lr,
+                drop_rate, aug_rate)
+        return traces.cpu().numpy()
 
     def evaluate_with_early_stopping(
             self, state: ModelState, generator: torch.Generator,
@@ -128,16 +146,22 @@ class EarlyStoppingEvaluator:
             n = len(indices)
             walked = torch.zeros((2, n), dtype=torch.float64,
                                  device=self.device)
-            positions = (range(n) if self.mesh is None
-                         else mesh_lib.share(n, self.mesh))
-            for j in positions:
-                trace = self._trace_task(
-                    state, indices[j],
-                    episodes.slot_generator(seed, j, self.device), max_steps,
-                    inner_batch_size, lr, drop_rate, aug_rate)
-                walked[:, j] = torch.tensor(walk_trace(
-                    trace, patience=self.patience, min_steps=min_steps),
-                    dtype=torch.float64)
+            positions = list(range(n) if self.mesh is None
+                             else mesh_lib.share(n, self.mesh))
+            ranks = 1 if self.mesh is None else mesh_lib.axis_size_of(
+                self.mesh, mesh_lib.TASK_AXIS)
+            chunk = -(-self.task_chunk_size // ranks)
+            for start in range(0, len(positions), chunk):
+                js = positions[start:start + chunk]
+                traces = self._trace_tasks(
+                    state, [indices[j] for j in js],
+                    [episodes.slot_generator(seed, j, self.device)
+                     for j in js], max_steps, inner_batch_size, lr,
+                    drop_rate, aug_rate)
+                for j, trace in zip(js, traces):
+                    walked[:, j] = torch.tensor(walk_trace(
+                        trace, patience=self.patience, min_steps=min_steps),
+                        dtype=torch.float64)
             if self.mesh is not None:
                 walked = mesh_lib.all_reduce_sum(
                     [walked], self.mesh.get_group(mesh_lib.TASK_AXIS))[0]

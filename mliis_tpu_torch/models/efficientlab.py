@@ -289,3 +289,9 @@ class EfficientLab(nn.Module):
         logits = layers.unfold_nchw(
             resize_bilinear_align_corners_nchw(decoded, in_h, in_w))
         return logits, torch.softmax(logits, dim=-1)
+
+
+def predictions_from_probabilities(probabilities: torch.Tensor,
+                                   thresh: float = 0.5) -> torch.Tensor:
+    """Hard class map: float32 (probabilities > thresh)."""
+    return (probabilities > thresh).float()

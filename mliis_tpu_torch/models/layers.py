@@ -37,8 +37,10 @@ What differs from the obvious `nn.Conv2d` / `nn.BatchNorm2d`:
     with the shape a one-task forward draws, and `cat` concatenates each
     task's channels (a plain `torch.cat` would mix tasks). `fold_nhwc`
     and `unfold_nchw` move the images and logits in and out of the
-    folded layout. A task axis does not compose with a spatial context
-    or a mesh `axis_name` (NotImplementedError).
+    folded layout. Under a task axis a sync-BN's `axis_name` averages
+    the stacked [2, T*C] moments over the mesh axis in one all-reduce, so
+    each task normalizes by its whole split batch. A task axis does not
+    compose with a spatial context (NotImplementedError).
 Parameter names keep the flax names (`kernel`, `bias`, `scale`; running
 stats `mean`, `var`) so checkpoints map one to one and the l2 term can skip
 batch norm by name.
@@ -226,9 +228,9 @@ class FusedBatchNorm(nn.Module):
     `always_batch_stats=True` normalizes by the batch's moments whatever
     `train` says; `train` then only decides whether the running stats are
     updated, so an eval-mode forward leaves the buffers as they were.
-    `axis_name` averages the batch moments over that bound mesh axis;
-    without one, a bound spatial context sums them over every rank's
-    rows."""
+    `axis_name` averages the batch moments over that bound mesh axis
+    (under a task axis, every task's in one all-reduce); without one, a
+    bound spatial context sums them over every rank's rows."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-3,
@@ -253,9 +255,6 @@ class FusedBatchNorm(nn.Module):
             self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        if self.axis_name is not None and _TASKS.get() is not None:
-            raise NotImplementedError("a task axis with sync-BN over {!r}"
-                                      .format(self.axis_name))
         if train or self.always_batch_stats:
             xf = x.float()
             if self.axis_name is None and spatial.current() is not None:

@@ -377,11 +377,13 @@ def rotation_trig(rot: torch.Tensor) -> torch.Tensor:
 
 def _draw_cheap_params(key, bits: BitSource, c_tot, h, w, max_shift,
                        noise_mean_sd, exposure_mean_sd, eraser_s_l,
-                       eraser_s_h, eraser_r_1, eraser_r_2
-                       ) -> Dict[str, torch.Tensor]:
+                       eraser_s_h, eraser_r_1, eraser_r_2, eraser_v_l=0.0,
+                       eraser_v_h=255.0) -> Dict[str, torch.Tensor]:
     """The scalar draws, [B] each, in `_draw_cheap_params` order at fixed
     counters (each op rounded as the kernel rounds it): the eraser's area
-    is s * H * W, its top in [0, H) and its left in [0, W)."""
+    is s * H * W, its top in [0, H) and its left in [0, W), its value in
+    [v_l, v_h) (the kernels' fixed [0, 255); only the per-image ops of
+    `ops/augment.py` set another)."""
     count = 9 + c_tot + 6
     u = uniform_from_bits(bits(key, torch.arange(count, device=key.device)[
         None], 0)[0])
@@ -398,7 +400,7 @@ def _draw_cheap_params(key, bits: BitSource, c_tot, h, w, max_shift,
         "er_h": torch.floor(torch.sqrt(er_s * er_r)).to(torch.int64),
         "er_top": _randint(u[:, 2], 0, h),
         "er_left": _randint(u[:, 3], 0, w),
-        "er_c": u[:, 4] * 255.0,
+        "er_c": u[:, 4] * f32(eraser_v_h - eraser_v_l) + f32(eraser_v_l),
         "vert": u[:, 5] < 0.5,
         "shift": torch.where(u[:, 6] < 0.5, shift, -shift),
         "do_roll": u[:, 8] < 0.5,
@@ -486,7 +488,8 @@ _OP_CONSTANTS = dict(max_shift=23, noise_mean_sd=5.1, exposure_mean_sd=12.75,
 
 def _compose_reference(seeds, x, perm, applied, rot, c_img, bits, max_shift,
                        noise_mean_sd, exposure_mean_sd, eraser_s_l,
-                       eraser_s_h, eraser_r_1, eraser_r_2):
+                       eraser_s_h, eraser_r_1, eraser_r_2, eraser_v_l=0.0,
+                       eraser_v_h=255.0):
     """The ops of `perm` at the stages where `applied` [B, 6] holds, one
     stage after another, with the counter map of the kernels' note. `rot`
     is None where no rotation stage is applied (`cheap_pass`)."""
@@ -497,7 +500,7 @@ def _compose_reference(seeds, x, perm, applied, rot, c_img, bits, max_shift,
     key = seeds.to(dev, torch.int64)[:, None]
     p = _draw_cheap_params(key, bits, c_tot, h, w, max_shift, noise_mean_sd,
                            exposure_mean_sd, eraser_s_l, eraser_s_h,
-                           eraser_r_1, eraser_r_2)
+                           eraser_r_1, eraser_r_2, eraser_v_l, eraser_v_h)
     pix = torch.arange(h * w, device=dev)[None]
     rows = torch.arange(h, device=dev)[None, :, None]
     cols = torch.arange(w, device=dev)[None, None, :]

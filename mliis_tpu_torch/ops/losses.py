@@ -219,16 +219,25 @@ def segmentation_losses(logits: torch.Tensor, probabilities: torch.Tensor,
                         label_smoothing: float = 0.0, dice: bool = True,
                         binary_iou_loss: bool = True, l2: bool = True,
                         l1: bool = False, darc1: bool = False,
-                        weight_decay: float = 0.0005) -> torch.Tensor:
+                        weight_decay: float = 0.0005,
+                        data_axis_name: Optional[str] = None
+                        ) -> torch.Tensor:
     """`segmentation_loss` of T tasks: logits, probabilities, labels [T, N,
     H, W, C]; params stacked [T, ...]. Returns the [T] losses, task t's
-    computed from its own slices alone."""
+    computed from its own slices alone. With `data_axis_name` each task's
+    N is this shard's part of its batch split over that mesh axis, and
+    each task's batch-level reductions sum across the axis, as in
+    `segmentation_loss`."""
     t, n, h, w, c = logits.shape
     smoothed = labels
     if label_smoothing:
         smoothed = labels * (1.0 - label_smoothing) + label_smoothing / c
     per_pixel = -(smoothed * F.log_softmax(logits, dim=-1)).sum(-1)
-    loss = per_pixel.reshape(t, -1).mean(1)
+    if data_axis_name is None:
+        loss = per_pixel.reshape(t, -1).mean(1)
+    else:
+        loss = (_axis_sum(per_pixel.reshape(t, -1).sum(1), data_axis_name)
+                / _axis_count(n * h * w, data_axis_name))
     if dice:
         if binary_iou_loss:
             true_flat = labels[..., 1].reshape(t * n, -1)
@@ -236,12 +245,17 @@ def segmentation_losses(logits: torch.Tensor, probabilities: torch.Tensor,
         else:
             true_flat = labels.reshape(t * n, -1)
             pred_flat = probabilities.reshape(t * n, -1)
-        iou = soft_iou_flat_per_example(true_flat, pred_flat).reshape(
-            t, n).mean(1)
+        iou = soft_iou_flat_per_example(true_flat, pred_flat).reshape(t, n)
+        if data_axis_name is None:
+            iou = iou.mean(1)
+        else:
+            iou = (_axis_sum(iou.sum(1), data_axis_name)
+                   / _axis_count(n, data_axis_name))
         loss = soft_dice_adjustment(loss, iou)
     if darc1:
-        loss = loss + weight_decay * logits.reshape(t, n, -1).abs().sum(
-            1).max(1).values
+        sums = _axis_sum(logits.reshape(t, n, -1).abs().sum(1),
+                         data_axis_name)
+        loss = loss + weight_decay * sums.max(1).values
     if params is not None:
         kept = [v for k, v in params.items() if not is_bn_name(k)]
         if l2:

@@ -30,6 +30,20 @@ def tree_mean_over_axis(tree: Tree, axis: int = 0) -> Tree:
     return tree_map(lambda x: x.mean(axis), tree)
 
 
+def tree_weighted_mean_over_axis(tree: Tree, weights: torch.Tensor,
+                                 axis: int = 0) -> Tree:
+    """Weighted mean over `axis` of every tensor (padded meta-batch slots
+    masked by weight 0); all-zero weights give zeros, not inf."""
+    denom = torch.clamp(weights.sum(), min=torch.finfo(torch.float32).tiny)
+
+    def wmean(x):
+        shape = [1] * x.ndim
+        shape[axis] = weights.shape[0]
+        return (x * weights.reshape(shape)).sum(axis) / denom
+
+    return tree_map(wmean, tree)
+
+
 def tree_sub(a: Tree, b: Tree) -> Tree:
     return tree_map(lambda x, y: x - y, a, b)
 
@@ -52,6 +66,13 @@ def tree_zeros_like(tree: Tree) -> Tree:
     return tree_map(torch.zeros_like, tree)
 
 
+def tree_dot(a: Tree, b: Tree) -> torch.Tensor:
+    """Inner product over every tensor of two trees, float32."""
+    total = torch.zeros((), dtype=torch.float32)
+    for k in a:
+        total = total + torch.vdot(a[k].reshape(-1), b[k].reshape(-1)).to(
+            total.device, torch.float32)
+    return total
 
 def tree_count_params(tree: Tree) -> int:
     """Number of scalars in the tree."""

@@ -389,12 +389,12 @@ def make_sharded_train_step(model, loss_config, opt_config, config,
     data axis (`inner_loop.DataShardSpec`): sync-BN moments, axis-aware
     loss reductions and averaged gradients keep the adaptation exact, the
     FOMAML* tail step runs whole on every data rank, and dropout and
-    drop-connect draw each data shard's own stream.
+    drop-connect draw each data shard's own stream. The rank's slots run
+    on a task axis beside the data axis as without one (the sync-BN
+    moments of all its tasks in one all-reduce), unless `chain_local`.
 
-    With a data axis the rank's slots run one after another whatever
-    `chain_local` says: a task axis does not compose with sync-BN's axis
-    yet. The JAX package's `n_max` is not a parameter: the draws come with
-    the step's arguments, as for `learners.make_chained_train_step`.
+    The JAX package's `n_max` is not a parameter: the draws come with the
+    step's arguments, as for `learners.make_chained_train_step`.
     """
     from mliis_tpu_torch.meta.inner_loop import DataShardSpec
     from mliis_tpu_torch.meta.learners import (finish_meta_step,
@@ -424,13 +424,13 @@ def make_sharded_train_step(model, loss_config, opt_config, config,
         data_shard = DataShardSpec(axis_name=DATA_AXIS, num_shards=n_data)
     d = mesh.get_local_rank(TASK_AXIS)
     slots = range(min(d * local_n, m), min((d + 1) * local_n, m))
-    if chain_local or data_shard is not None or not slots:
+    if chain_local or not slots:
         per_task = make_per_task_fn(model, loss_config, opt_config, config,
                                     data_shard=data_shard)
         local_sums = sum_over_slots
     else:
         per_task = make_batched_per_task_fn(model, loss_config, opt_config,
-                                            config)
+                                            config, data_shard=data_shard)
         local_sums = sum_over_slots_batched
     task_group = mesh.get_group(TASK_AXIS)
 

@@ -1,5 +1,6 @@
 """The port's sharded meta-steps (`parallel/mesh.make_sharded_train_step`)
-against the JAX package and against the port's own world of 1.
+against the JAX package and against the port's own world of 1, and the
+early-stopping evaluator on a world of 2 against the unsharded one.
 
 Gloo worlds of 4 and 2 are spawned once each (tests/torch_mesh_worker.py,
 which imports no JAX) and run every case; this process computes the
@@ -24,6 +25,8 @@ from mliis_tpu_torch.meta import learners as tlr
 from mliis_tpu_torch.utils.checkpoint import params_from_jax
 from tests import torch_mesh_worker as worker
 from tests.test_torch_meta import _jax_draws, _jax_flat
+from tests.test_torch_parallel_eval import (ES, ES_CALL, EVAL, EVAL_STORE,
+                                            TASKS, _port_evaluators)
 from tests.tiny_model import TinySeg
 from tests.torch_tiny_model import TorchTinySeg
 
@@ -39,12 +42,17 @@ TASK_ALGOS = {"fomaml_star": dict(foml=True, tail_shots=2),
 # (task, data) axes: every inner batch of 4 splits over the data axis.
 MESH2D_CFG = dict(num_shots=6, inner_batch_size=4, inner_iters=3,
                   meta_batch_size=3, augment=False)
-# (mesh, algorithm, chain_local, loss terms beside bce_dice + l2)
+# (mesh, algorithm, chain_local, loss terms beside bce_dice + l2, key):
+# without chain_local a rank's slots run on a task axis beside the data
+# axis; the 1x2 step runs both ways from the same key.
 MESH2D = {"2x2_fomaml_star": ((2, 2), dict(foml=True, tail_shots=2), True,
-                              {}),
-          "2x2_reptile": ((2, 2), dict(foml=False), False, {}),
+                              {}, 50),
+          "2x2_reptile": ((2, 2), dict(foml=False), False, {}, 51),
           "1x2_fomaml_star": ((1, 2), dict(foml=True, tail_shots=2), False,
-                              dict(darc1=True, label_smoothing=0.1))}
+                              dict(darc1=True, label_smoothing=0.1), 52),
+          "1x2_fomaml_star_chained": ((1, 2), dict(foml=True, tail_shots=2),
+                                      True, dict(darc1=True,
+                                                 label_smoothing=0.1), 52)}
 # The port against its world of 1: its own draws, augmentation on.
 OWN = {"task4": (4, (4,)), "2x2": (4, (2, 2)), "task2": (2, (2,)),
        "1x2": (2, (1, 2))}
@@ -99,9 +107,9 @@ def runs(tiny, tmp_path_factory):
             "task4_" + algo, (4,), dict(TASK_CFG, **kw), tiny,
             jax.random.PRNGKey(40 + i))
         cases[4].append(case)
-    for i, (name, (mesh, kw, chain, loss)) in enumerate(MESH2D.items()):
+    for name, (mesh, kw, chain, loss, seed) in MESH2D.items():
         case, refs[name] = _jax_case(name, mesh, dict(MESH2D_CFG, **kw),
-                                     tiny, jax.random.PRNGKey(50 + i), chain,
+                                     tiny, jax.random.PRNGKey(seed), chain,
                                      loss)
         cases[mesh[0] * mesh[1]].append(case)
     zero = dict(_own_case("task4_reptile_zero", (4,), tiny[2], 3),
@@ -110,6 +118,10 @@ def runs(tiny, tmp_path_factory):
     cases[4].append(zero)
     for seed, (name, (world, mesh)) in enumerate(OWN.items()):
         cases[world].append(_own_case("own_" + name, mesh, tiny[2], seed))
+    cases[2].append(dict(name="evaluation", kind="evaluation",
+                         state_dict=tiny[2],
+                         store=EVAL_STORE, eval=EVAL, tasks=TASKS, seed=7,
+                         es=ES, es_call=ES_CALL))
     results = {}
     for world, world_cases in cases.items():
         results.update(worker.spawn(
@@ -157,14 +169,38 @@ def test_sharded_reptile_zero_step_identity(runs, tiny):
 
 @pytest.mark.parametrize("name", list(MESH2D))
 def test_2d_task_data_step_matches_jax(runs, name):
-    """A (task, data) mesh with the sync-BN model (the 2x2 FOMAML* case
-    with `chain_local`): every inner batch of 4 splits over 2 data ranks,
-    with bce_dice + l2 (and, on 1x2, darc1 and label smoothing) summed
-    across the axis; every rank within 2e-5 abs + 1e-4 rel of the JAX
-    package's unsharded step."""
+    """A (task, data) mesh with the sync-BN model, a rank's slots on a task
+    axis or (`chain_local`) one after another: every inner batch of 4
+    splits over 2 data ranks, with bce_dice + l2 (and, on 1x2, darc1 and
+    label smoothing) summed across the axis; every rank within 2e-5 abs +
+    1e-4 rel of the JAX package's unsharded step."""
     ranks, ref = runs[name]
     _assert_ranks_close(ranks, _jax_ref_dict(ref), int(ref.opt.step),
                         atol=2e-5, rtol=1e-4)
+
+
+def test_2d_step_on_a_task_axis_equals_chained_local(runs):
+    """The 1x2 FOMAML* step with the rank's 3 slots on a task axis beside
+    the data axis, against the same step with `chain_local`, from the same
+    draws: every rank's params and running stats within 1e-6."""
+    chained = runs["1x2_fomaml_star_chained"][0][0]
+    _assert_ranks_close(runs["1x2_fomaml_star"][0],
+                        dict(chained["params"], **chained["batch_stats"]),
+                        chained["step"], atol=1e-6, rtol=0)
+
+
+def test_early_stopping_on_a_world_of_2_equals_unsharded(runs):
+    """EarlyStoppingEvaluator(mesh=) on a task mesh of 2 (each rank traces
+    its 3 of the 6 tasks in chunks of 2 on a task axis), with the
+    median-step re-evaluation: both ranks return the unsharded evaluator's
+    (chunks of 4) names, best steps and IoUs (within 1e-5)."""
+    state, _, es = _port_evaluators()
+    names, steps, ious = es.evaluate_with_early_stopping(
+        state, torch.Generator().manual_seed(7), eval_all_tasks=True,
+        **ES_CALL)
+    for r in runs["evaluation"][0]:
+        assert r["names"] == names and r["steps"] == steps
+        np.testing.assert_allclose(r["es_ious"], ious, atol=1e-5)
 
 
 @pytest.mark.parametrize("name", list(OWN))

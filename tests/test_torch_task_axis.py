@@ -189,14 +189,88 @@ def test_task_cat_keeps_each_tasks_channels():
     assert torch.equal(layers.cat([a[0], b[0]]), torch.cat([a[0], b[0]], 1))
 
 
-def test_task_axis_refuses_sync_bn_and_a_data_axis():
-    bn = layers.FusedBatchNorm(3, axis_name="data")
-    with layers.task_axis(2), pytest.raises(NotImplementedError):
-        bn(torch.zeros(2, 6, 2, 2), True)
-    with pytest.raises(NotImplementedError):
-        til.make_batched_adapt_fn(bn, til.LossConfig(),
+def _world_of_one(tmp_path, monkeypatch):
+    for name in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    return mesh_lib.world(1, "cpu", str(tmp_path))
+
+
+def test_sync_bn_under_task_axis_equals_one_task_forwards(tmp_path,
+                                                          monkeypatch):
+    """A sync-BN batch norm (axis "data") under a task axis of 3, in a
+    world of 1 on a data mesh of 1: each task's output and updated running
+    stats equal its one-task sync-BN forward's within 1e-6 (the stacked
+    [2, T*C] moments pass one all-reduce)."""
+    bn = layers.FusedBatchNorm(5, axis_name="data")
+    trees = _task_params(bn, 3)
+    g = torch.Generator().manual_seed(4)
+    xs = [3.0 * torch.randn(4, 5, 6, 6, generator=g) + t for t in range(T)]
+    stacked = _stack(trees)
+    with _world_of_one(tmp_path, monkeypatch) as dev, mesh_lib.bound(
+            mesh_lib.make_data_mesh(1, dev)):
+        with layers.task_axis(T):
+            out = _unfold(_call(bn, stacked, _fold(xs), True), T)
+        for t in range(T):
+            own = {k: v.clone() for k, v in trees[t].items()}
+            ref = _call(bn, own, xs[t], True)
+            np.testing.assert_allclose(out[:, t].numpy(), ref.numpy(),
+                                       atol=1e-6, rtol=0)
+            for k in ("mean", "var"):
+                np.testing.assert_allclose(stacked[k][t].numpy(),
+                                           own[k].numpy(), atol=1e-6,
+                                           rtol=0)
+
+
+def test_batched_adapt_on_a_data_axis_of_one(tiny, tmp_path, monkeypatch):
+    """`make_batched_adapt_fn(data_shard=)` with the sync-BN TinySeg on a
+    data axis of 1 (world of 1), augmentation on: the same adaptation as
+    without a shard, within 1e-6; with `precompute_augment` it refuses, as
+    the JAX package's adapt does."""
+    _, _, tmodel, tstate = tiny
+    synced = mesh_lib.sync_bn_copy(tmodel)
+    g = torch.Generator().manual_seed(3)
+    imgs = torch.randint(0, 256, (T, 6, IMAGE, IMAGE, 3), generator=g
+                         ).to(torch.uint8)
+    msks = ((torch.rand(T, 6, IMAGE, IMAGE, generator=g) > 0.5)
+            .to(torch.uint8) * 255)
+    idx = torch.randint(0, 6, (T, 3, 4), generator=g)
+    args = (til.stack_states([tstate] * T), imgs, msks, idx)
+    ref, _ = til.make_batched_adapt_fn(
+        tmodel, til.LossConfig(), til.OptimizerConfig("sgd"))(
+        *args, _generators(60), [0.05] * 3, aug_rate=1.0)
+    shard = til.DataShardSpec(mesh_lib.DATA_AXIS, 1)
+    with _world_of_one(tmp_path, monkeypatch) as dev, mesh_lib.bound(
+            mesh_lib.make_data_mesh(1, dev)):
+        out, _ = til.make_batched_adapt_fn(
+            synced, til.LossConfig(), til.OptimizerConfig("sgd"),
+            data_shard=shard)(*args, _generators(60), [0.05] * 3,
+                              aug_rate=1.0)
+    assert _state_gap(out, ref) <= 1e-6
+    with pytest.raises(ValueError):
+        til.make_batched_adapt_fn(synced, til.LossConfig(),
                                   til.OptimizerConfig("sgd"),
-                                  data_shard=til.DataShardSpec("data", 2))
+                                  precompute_augment=True, data_shard=shard)
+
+
+@pytest.mark.parametrize("route", ["fused", "split"])
+def test_augment_batches_slices_each_tasks_whole_batch_draws(route,
+                                                             monkeypatch):
+    """A data shard's rows [2, 4) of 3 tasks' batches of 4, augmented with
+    `key_offset=2, key_total=4`: bit for bit those rows of the whole
+    batches' augmentation from the same generators."""
+    if route == "split":
+        monkeypatch.setattr(taug, "PALLAS_FUSED_SINGLE_LAUNCH", False)
+    g = torch.Generator().manual_seed(8)
+    images = torch.randint(0, 256, (T, 4, 16, 16, 3), generator=g).float()
+    masks = tep.onehot_mask((torch.rand(T, 4, 16, 16, generator=g) > 0.5)
+                            .to(torch.uint8) * 255)
+    whole_i, whole_m = taug.augment_batches(_generators(90), images, masks,
+                                            0.2)
+    part_i, part_m = taug.augment_batches(
+        _generators(90), images[:, 2:], masks[:, 2:], 0.2, key_offset=2,
+        key_total=4)
+    assert torch.equal(part_i, whole_i[:, 2:])
+    assert torch.equal(part_m, whole_m[:, 2:])
 
 
 @pytest.mark.parametrize("route", ["fused", "split", "non_square"])

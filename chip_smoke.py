@@ -11,11 +11,12 @@ its phases, one line each (or a few):
      odd 5 x 225^2 (padded lines and bins) and the largest plane the
      wrapper takes, 5 x 512^2: fixed rows that run every op and every
      rotation mode, then (but at 512^2) rows drawn as the meta path draws
-     them; then the batched meta-step's B=40 (5 tasks x 8) at 224^2, the
-     fixed rows repeated. Tolerances: 1e-3 abs on samples without
-     rotation; on rotated samples 1e-2 abs on the image planes (0..255)
-     and at most 1e-4 of the mask pixels flipped (fg/bg ties within
-     float32 DFT rounding). Times
+     them; then the batched meta-step's B=40 (5 tasks x 8) and the
+     learning-evidence run's evaluation chunks' B=32 and 64 (4 and 8
+     tasks x 8) at 224^2, the fixed rows repeated. Tolerances: 1e-3 abs
+     on samples without rotation; on rotated samples 1e-2 abs on the
+     image planes (0..255) and at most 1e-4 of the mask pixels flipped
+     (fg/bg ties within float32 DFT rounding). Times
      each size, computes the bounds and prints each size's cluster size
      and shared memory beside the kernel's registers and spills.
   3. kernel[cheap_pass]: `cheap_pass` against `cheap_pass_reference` at
@@ -117,7 +118,7 @@ its phases, one line each (or a few):
      CLI with `--mesh_tasks 1` (the `train` run cut to 1 meta-iter and 10
      evaluation steps a task: 1 x 5 x 58 + 1 x (6 + 2) x 10 + 1 x (1 + 2)
      x 10 = 400 `full_pass` launches), then one library FOMAML* meta-step
-     of 30 inner steps a task unsharded and one through
+     of 10 inner steps a task unsharded and one through
      `make_sharded_train_step` (its slots chained) on a task mesh of 1
      from the same state and draw seed (dropout and drop-connect 0),
      then 2 unsharded joint steps at 1001 channels and batch 64 (the store
@@ -133,8 +134,8 @@ its phases, one line each (or a few):
      MESH_BATCHED_BAR of the chained step's largest change,
      the CLIs' mean IoUs within MESH_IOU_BAR, the backends must be NCCL
      and gloo, and the launches are exact, summed over the ranks: 400 for
-     either CLI, 29 a rank on the 1x2 step on the task axis and 5 x 29 =
-     145 chained, 1
+     either CLI, 9 a rank on the 1x2 step on the task axis and 5 x 9 =
+     45 chained, 1
      `fused_light_augment` a rank a step. Prints each run's seconds (a
      meta-step, a joint step), each rank's peak memory and the gaps.
   12. spatial: the image H axis split over ranks
@@ -191,11 +192,25 @@ its phases, one line each (or a few):
      --nproc_per_node 2 chip_smoke.py --traces-rank DIR`), 2 val tasks of
      5 steps: both ranks' (steps, IoU) lists and k-shot mIoUs equal,
      launches exact summed over the ranks.
+  15. curve (after `traces`): experiments/torch_curve_v2.py, the
+     learning-evidence run, in a process of its own (`chip_smoke.py
+     --curve-run DIR`) at full width (EfficientLab-b0 rsd=(2, 4) in bf16,
+     224^2, 59 inner steps, meta-batch 5, the meta-step on a task axis,
+     the evaluation in chunks of 8) on 16 train tasks, cut to 2
+     meta-iterations, an evaluation point after each, 1 evaluation sample
+     and 4 held-out tasks: exactly 2 x 1 x 58 + 4 x 1 x 1 x 59 = 352
+     `full_pass` launches (derived from the flags) and no other kernel;
+     result.json with the JAX script's keys plus `device`, curve.json's
+     entries [0, mean] then [iter, mean, diff, ci]; a baseline mean IoU
+     below CURVE_BASELINE_BAR; the checkpoint's params finite and changed.
+     Prints the seconds a meta-iteration and an evaluation point take.
 Then the `kernels` JSON line (each kernel's launches on the path it
 carries, and on every path; `ms`, `cold_ms` and `bound_share` at the main
 path's size, every size's beside them), the card's name and power limit
 again, and the result line. Any failed phase exits non-zero, as does a run without a
-card or away from the checkout.
+card or away from the checkout. After each phase, whatever process it left
+below the script (the script is their subreaper, so orphans count) is
+named on a `processes:` line and stopped, so that none outlives the run.
 """
 import contextlib
 import json
@@ -213,6 +228,93 @@ H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores
 
 def log(*args):
     print(*args, flush=True)
+
+
+# Processes below the script before its first phase (a `tee` of a shell's
+# process substitution is one): `stop_descendants` leaves them be.
+_KEPT = set()
+
+
+def _become_subreaper():
+    """Linux's PR_SET_CHILD_SUBREAPER: a process that a child of ours
+    leaves behind (an orphan of torch.distributed.run's workers, which run
+    in sessions of their own, or of the `curve` run) becomes our child
+    instead of init's, so that `stop_descendants` finds it. What is below
+    the script already is kept out of the sweeps."""
+    import ctypes
+    _KEPT.update(pid for pid, _, _ in _descendants())
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (AttributeError, OSError):
+        pass
+
+
+def _descendants():
+    """[(pid, state, command line)] of every process below this one, read
+    from /proc, but those in _KEPT and below them."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open("/proc/{}/stat".format(entry)) as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open("/proc/{}/cmdline".format(entry), "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        children.setdefault(int(fields[1]), []).append(
+            (int(entry), fields[0], cmd.strip()[:200]))
+    out, todo = [], [os.getpid()]
+    while todo:
+        for proc in children.get(todo.pop(), ()):
+            if proc[0] not in _KEPT:
+                out.append(proc)
+                todo.append(proc[0])
+    return out
+
+
+def _reap():
+    """Collects the exit status of every child that has ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_descendants(where, grace=10.0):
+    """Stops every process below this one that is still there after
+    `where`: names each, sends SIGTERM, SIGKILL to those left after `grace`
+    seconds, and reaps them. Returns how many there were."""
+    import signal
+    left = _descendants()
+    for pid, state, cmd in left:
+        log("processes: after {} pid {} ({}) was left: {}".format(
+            where, pid, state, cmd))
+        try:
+            os.kill(pid, signal.SIGTERM)
+        except ProcessLookupError:
+            pass
+    deadline = time.time() + grace
+    while left and time.time() < deadline:
+        _reap()
+        if not [p for p in _descendants() if p[1] != "Z"]:
+            break
+        time.sleep(0.1)
+    for pid, _, _ in _descendants():
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    _reap()
+    while [p for p in _descendants() if p[1] != "Z"]:
+        time.sleep(0.1)
+        _reap()
+    _reap()
+    return len(left)
 
 
 @contextlib.contextmanager
@@ -495,17 +597,20 @@ def _full_pass_at(dev, size, b=8, c_tot=5, drawn=True):
 
 
 # (size, drawn rows, B): the chained paths' B=8 at 224^2, the JAX CLI's
-# 320^2, an odd 225^2, the largest plane (512^2), and the task axis's B=40
-# (5 tasks x 8) at 224^2.
+# 320^2, an odd 225^2, the largest plane (512^2), the task axis's B=40
+# (5 tasks x 8) at 224^2, and the learning-evidence run's evaluation
+# chunks, B=32 and 64 (4 and 8 held-out tasks x 8).
 FULL_PASS_SIZES = ((224, True, 8), (320, True, 8), (225, True, 8),
-                   (512, False, 8), (224, True, 40))
+                   (512, False, 8), (224, True, 40), (224, True, 32),
+                   (224, True, 64))
 
 
 def phase_kernel(dev):
     """`full_pass` at the chained meta path's shape (B=8, 5 x 224^2), at
     the JAX CLI's default image size (5 x 320^2), at an odd 5 x 225^2, at
-    the largest plane the wrapper takes (5 x 512^2, fixed rows only) and
-    at the batched meta-step's B=40, all held to the same bars; the
+    the largest plane the wrapper takes (5 x 512^2, fixed rows only), at
+    the batched meta-step's B=40 and at the learning-evidence run's
+    evaluation chunks' B=32 and 64, all held to the same bars; the
     entry's times are the chained meta path's, every size's beside
     them."""
     sizes = {_size_tag(b, n, n): _full_pass_at(dev, n, b=b, drawn=drawn)
@@ -1720,7 +1825,11 @@ def traces_rank(outdir):
     under `torch.distributed.run`): the UHO and the k-shot branches of the
     CLI with `--mesh_tasks 2` from the checkpoint in `outdir`; each rank
     writes the (names, steps, IoUs) its early-stopping evaluations
-    returned, the k-shot (ks, mIoUs), its launches, walls and peaks."""
+    returned, the k-shot (ks, mIoUs), its launches, walls and peaks.
+    Both branches run with deterministic algorithms: each rank computes
+    the k-shot curves of every task itself, and without them cuDNN's
+    backward sums in another order from process to process (a k-shot
+    mIoU once differed by 1.2e-6 between the ranks)."""
     import torch
     import torch.distributed as dist
     from mliis_tpu_torch.cli import args as args_lib
@@ -1732,9 +1841,10 @@ def traces_rank(outdir):
     result = {"rank": rank, "backend": dist.get_backend()}
     ckpt_dir = os.path.join(outdir, "ckpt")
     argv = _traces_argv(ckpt_dir, False) + TRACES_MESH_ARGV
-    es, kshot = [], []
-    with _recording(uho_eval.EarlyStoppingEvaluator,
-                    "evaluate_with_early_stopping", es):
+    es, kshot, nondeterministic = [], [], []
+    with deterministic_algorithms(nondeterministic), _recording(
+            uho_eval.EarlyStoppingEvaluator, "evaluate_with_early_stopping",
+            es):
         _, out, launches, wall, peak = _run_cli(argv, dev)
     steps = re.search(r"UHO estimated lr=\S+ steps=(\d+)", out)
     result["uho"] = {"es": [list(r["out"]) for r in es],
@@ -1745,10 +1855,11 @@ def traces_rank(outdir):
     os.makedirs(workdir)
     kshot_argv = _traces_argv(ckpt_dir, False, uho=False) + KSHOT_ARGV \
         + TRACES_MESH_ARGV
-    with _recording(run_metasegnet, "run_k_shot_learning_curves_experiment",
-                    kshot):
+    with deterministic_algorithms(nondeterministic), _recording(
+            run_metasegnet, "run_k_shot_learning_curves_experiment", kshot):
         _, out, launches, wall, peak = _run_cli(kshot_argv, dev,
                                                 cwd=workdir)
+    result["nondeterministic"] = nondeterministic
     args = args_lib.argument_parser().parse_args(kshot_argv)
     result["kshot"] = {"ks_mious": [list(map(list, r["out"]))
                                     for r in kshot],
@@ -1945,11 +2056,14 @@ def phase_traces(dev):
               "run_metasegnet k-shot --mesh_tasks 2 on gloo, k {} at {} "
               "steps on {} test tasks (each rank all of them) | (ks, "
               "mIoUs) per rank {} | CSV written by rank 0 alone {} | walls "
-              "{} s".format(
+              "{} s | deterministic; ops without a deterministic form: "
+              "{}".format(
                   kshot[0]["k_range"], kshot[0]["eval_iters"], n_test,
                   [r["ks_mious"] for r in kshot],
                   kshot[0]["csv"] and not kshot[1]["csv"],
-                  ["{:.2f}".format(r["wall"]) for r in kshot]))
+                  ["{:.2f}".format(r["wall"]) for r in kshot],
+                  sorted({m for r in ranks for m in r["nondeterministic"]})
+                  or "none"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log("traces: the phase's wall {:.2f} s".format(time.time() - t_phase))
@@ -2175,9 +2289,9 @@ def phase_decoders(dev):
 # 5 x 59 steps).
 MESH_CUT = ["--meta-iters", "1"]
 MESH_STEP_SEED = 1234      # the library meta-steps' draw seed
-# The library meta-steps' depth: 30 inner steps a task (run.sh: 59), cut
-# to keep chip_smoke.py near 600 s beside the `batched` phase.
-MESH_STEP_ITERS = 30
+# The library meta-steps' depth: 10 inner steps a task (run.sh: 59), cut
+# to keep chip_smoke.py within 900 s.
+MESH_STEP_ITERS = 10
 MESH_JOINT_STEPS, MESH_JOINT_BATCH = 2, 64
 MESH_RANKS = 2
 # Bars on the largest difference of a state from the unsharded one, as a
@@ -2901,6 +3015,168 @@ def phase_spatial(dev):
     return counts
 
 
+# The `curve` phase: experiments/torch_curve_v2.py, the learning-evidence
+# run, at full width (b0 rsd=(2, 4) bf16, 224^2, 59 inner steps,
+# meta-batch 5, the meta-step on a task axis, the evaluation in chunks of
+# 8), cut from 3000 meta-iterations, 40 train tasks, 12 held-out tasks and
+# 3 evaluation samples.
+CURVE_ARGV = ["--meta_iters", "2", "--eval_every", "1", "--eval_samples",
+              "1", "--test_tasks", "4", "--train_tasks", "16"]
+CURVE_BASELINE_BAR = 0.01  # random init scores ~0 (the TPU's: 3.6e-11)
+
+
+def _curve_script():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_curve_v2", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "experiments", "torch_curve_v2.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def curve_run(outdir):
+    """The `curve` phase's process: the script's `main` with CURVE_ARGV
+    into outdir/run, the counts at 0 just before and written to
+    outdir/launches.json just after."""
+    script = _curve_script()
+    reset_launches()
+    script.main(CURVE_ARGV + ["--out", os.path.join(outdir, "run")])
+    with open(os.path.join(outdir, "launches.json"), "w") as f:
+        json.dump(read_launches(), f)
+    return 0
+
+
+def _expected_curve_launches(args):
+    """`full_pass` launches of a run of the script, from its flags: each
+    meta-iteration one launch an augmented inner step for the meta-batch
+    (FOMAML*'s last step is the raw tail; the chained step one a task);
+    each evaluation (the baseline, every curve point, the final one) one
+    an inner step for each chunk of held-out tasks (one a task chained),
+    eval_samples times. Returns (total, its terms as text)."""
+    points = sum(1 for i in range(1, args.meta_iters + 1)
+                 if i % args.eval_every == 0 or i == args.meta_iters)
+    tasks = args.meta_batch if args.chain_tasks else 1
+    chunks = args.test_tasks if args.chain_eval_chunk else \
+        -(-args.test_tasks // args.task_chunk_size)
+    evals = 2 + points
+    total = (args.meta_iters * tasks * (args.inner_iters - 1)
+             + evals * args.eval_samples * chunks * args.inner_iters)
+    return total, "{} x {} x {} + {} x {} x {} x {}".format(
+        args.meta_iters, tasks, args.inner_iters - 1, evals,
+        args.eval_samples, chunks, args.inner_iters)
+
+
+def phase_curve(dev):
+    """experiments/torch_curve_v2.py at full width in a process of its own
+    (`chip_smoke.py --curve-run DIR`), cut to CURVE_ARGV: its `full_pass`
+    launches exact (derived from the flags) and no other kernel;
+    result.json with the JAX script's keys (those of the committed
+    experiments/curve_v2_seed1 run) plus `device`, and curve.json with its
+    entry shapes; a baseline mean IoU below CURVE_BASELINE_BAR; the
+    checkpoint's params finite and changed from the random init. Prints
+    the seconds a meta-iteration and an evaluation point take. Returns
+    {"curve": launches}."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mliis_tpu_torch.meta.inner_loop import (OptimizerConfig,
+                                                 init_model_state)
+    from mliis_tpu_torch.models.efficientlab import EfficientLab
+    from mliis_tpu_torch.utils import checkpoint as ckpt
+    args = _curve_script().argument_parser().parse_args(
+        CURVE_ARGV + ["--out", "unused"])
+    total, terms = _expected_curve_launches(args)
+    expect = {"full_pass": total, "cheap_pass": 0, "fused_light_augment": 0}
+    with open(os.path.join("experiments", "curve_v2_seed1",
+                           "result.json")) as f:
+        keys = set(json.load(f)) | {"device"}
+    workdir = tempfile.mkdtemp(prefix="curve_smoke_")
+    run = os.path.join(workdir, "run")
+    try:
+        t0 = time.time()
+        code = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--curve-run", workdir], timeout=600
+                              ).returncode
+        wall = time.time() - t0
+        if code != 0:
+            raise AssertionError("the curve run exited {}".format(code))
+        with open(os.path.join(workdir, "launches.json")) as f:
+            launches = json.load(f)
+        with open(os.path.join(run, "result.json")) as f:
+            result = json.load(f)
+        with open(os.path.join(run, "curve.json")) as f:
+            points = json.load(f)
+        with open(os.path.join(run, "timings.jsonl")) as f:
+            timings = [json.loads(line) for line in f]
+        baseline = np.load(os.path.join(run, "baseline.npy"))
+        model = EfficientLab(rsd=(2, 4), final_layer_dropout_rate=0.5,
+                             compute_dtype=torch.bfloat16)
+        model.reset_parameters(torch.Generator().manual_seed(args.seed))
+        init = init_model_state(model, OptimizerConfig("sgd"))
+        state, meta = ckpt.restore_checkpoint(run, init)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    shapes = [len(p) for p in points]
+    shapes_ok = (points == result["curve"]
+                 and [p[0] for p in points] == list(range(args.meta_iters
+                                                          + 1))
+                 and shapes == [2] + [4] * args.meta_iters
+                 and all(math.isfinite(v) for p in points for v in p))
+    finite = all(bool(v.isfinite().all()) for v in state.params.values())
+    moved = sum(float((state.params[k] - v).abs().sum())
+                for k, v in init.params.items())
+    iter_s = [e["s"] for e in timings if "iter" in e]
+    eval_s = [e["s"] for e in timings if "eval_at" in e]
+    ok = (launches == expect and set(result) == keys and shapes_ok
+          and baseline.shape == (args.eval_samples, args.test_tasks)
+          and result["baseline_mean_iou"] < CURVE_BASELINE_BAR
+          and result["meta_iters_done"] == args.meta_iters
+          and meta.get("step") == args.meta_iters and finite and moved > 0)
+    log("curve: experiments/torch_curve_v2.py {} | wall {:.2f} s | s a "
+        "meta-iteration {} | s an evaluation point {} | baseline mean IoU "
+        "{:.3g} (bar < {}) | curve {} | final {:.4f}, task-level diff "
+        "{:.4f} +/- {:.4f} | result keys {} | curve shapes {} | params "
+        "finite {} | sum |d params| {:.4g} | device {} | launches {} "
+        "(expect {} = {})".format(
+            " ".join(CURVE_ARGV), wall,
+            ["{:.3f}".format(s) for s in iter_s],
+            ["{:.3f}".format(s) for s in eval_s],
+            result["baseline_mean_iou"], CURVE_BASELINE_BAR,
+            [[round(v, 4) for v in p] for p in points],
+            result["final_mean_iou"], result["task_level_diff_mean"],
+            result["task_level_ci95_t"], "match" if set(result) == keys
+            else sorted(set(result) ^ keys), shapes, finite, moved,
+            result["device"], launches, expect, terms))
+    if not ok:
+        raise AssertionError("the curve run did not run as expected")
+    return {"curve": launches}
+
+
+def _drive(dev):
+    """Every phase in turn, each followed by `stop_descendants`. Returns
+    ({path: launches}, the kernels' entries)."""
+    def run(phase, *args):
+        try:
+            return phase(*args)
+        finally:
+            stop_descendants(phase.__name__)
+
+    run(phase_build)
+    entries = [run(phase_kernel, dev), run(phase_cheap_kernel, dev),
+               run(phase_light_kernel, dev)]
+    run(phase_agree, dev)
+    run(phase_agree_joint, dev)
+    by_path = {"slice": run(phase_slice, dev)}
+    by_path.update(run(phase_eval, dev))
+    by_path["joint"] = run(phase_joint, dev)
+    for phase in (phase_train, phase_batched, phase_traces, phase_curve,
+                  phase_decoders, phase_mesh, phase_spatial):
+        by_path.update(run(phase, dev))
+    return by_path, entries
+
+
 def main() -> int:
     try:
         import torch
@@ -2928,20 +3204,8 @@ def main() -> int:
                           text=True, check=True, timeout=60
                           ).stdout.strip().splitlines()[0]
     log("card: " + card)
-    phase_build()
-    entries = [phase_kernel(dev), phase_cheap_kernel(dev),
-               phase_light_kernel(dev)]
-    phase_agree(dev)
-    phase_agree_joint(dev)
-    by_path = {"slice": phase_slice(dev)}
-    by_path.update(phase_eval(dev))
-    by_path["joint"] = phase_joint(dev)
-    by_path.update(phase_train(dev))
-    by_path.update(phase_batched(dev))
-    by_path.update(phase_traces(dev))
-    by_path.update(phase_decoders(dev))
-    by_path.update(phase_mesh(dev))
-    by_path.update(phase_spatial(dev))
+    _become_subreaper()
+    by_path, entries = _drive(dev)
     # Each kernel's `launches` is read from the path it carries: the
     # meta-step for full_pass, the split-route evaluation for cheap_pass,
     # the joint run for fused_light_augment; every path's counts beside.
@@ -2964,7 +3228,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     RANK_ENTRIES = {"--mesh-rank": mesh_rank, "--spatial-rank": spatial_rank,
-                    "--traces-rank": traces_rank}
+                    "--traces-rank": traces_rank, "--curve-run": curve_run}
     if sys.argv[1:2] and sys.argv[1] in RANK_ENTRIES:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(RANK_ENTRIES[sys.argv[1]](sys.argv[2]))

@@ -34,6 +34,10 @@ learning-rate anneal, periodic validation and checkpoints.
     and gradients are averaged over it. The chunked head works on the
     local batch. Dropout and drop-connect draw each rank's own stream.
     Rank 0 alone writes the metrics and checkpoints and logs.
+  - Under `utils/profiling.spans` (and `utils/profiling.trace`) each train
+    step is a `joint.step` span, the step's index its input, holding its
+    `joint.batch`, augmentation, `model.forward`, `loss.head`, `loss.l2`,
+    `joint.backward` and `optimizer.apply` spans.
 """
 import contextlib
 import dataclasses
@@ -56,6 +60,7 @@ from mliis_tpu_torch.ops.losses import l2_term
 from mliis_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw
 from mliis_tpu_torch.parallel import mesh as mesh_lib
 from mliis_tpu_torch.utils import checkpoint as ckpt_lib
+from mliis_tpu_torch.utils import profiling
 from mliis_tpu_torch.utils.logging import MetricsWriter
 
 _SEED_HIGH = 2 ** 31 - 1   # per-sample seeds in [0, int32 max)
@@ -115,6 +120,7 @@ def _chunk(n: int, c: int, h: int, w: int) -> int:
     return max(1, min(n, _MAX_ELEMENTS // (c * h * w)))
 
 
+@profiling.spanned("loss.head")
 def resized_cross_entropy(low_logits: torch.Tensor, labels: torch.Tensor,
                           label_smoothing: float = 0.0) -> torch.Tensor:
     """`sparse_segmentation_loss` of NCHW logits at the decoder's
@@ -182,6 +188,7 @@ class JointTrainer:
         self.opt_config = opt_config
         self.dataset = dataset
         self.val_dataset = val_dataset
+        self._steps = 0   # train steps taken: the index of their spans
         self._params = list(model.parameters())
         self._named_params = dict(model.named_parameters())
         as_dev = lambda a: torch.as_tensor(a, device=self.device)  # noqa
@@ -212,28 +219,35 @@ class JointTrainer:
         OptState and the loss (a device tensor: nothing here waits for the
         device)."""
         cfg = self.config
-        idx = idx[self._shard]
-        images = self._images[idx].float()
-        labels = self._labels[idx]
-        if cfg.augment:
-            images, masks = self._augment(seeds[self._shard].contiguous(),
-                                          images, labels.float(),
-                                          prob_original=0.0)
-            labels = masks
-        with (contextlib.nullcontext() if self.mesh is None
-              else mesh_lib.bound(self.mesh)):
-            low_logits, _ = self.model(images, train=True,
-                                       generator=generator, upsample=False)
-            loss = resized_cross_entropy(low_logits, labels,
-                                         cfg.label_smoothing)
-            del low_logits
-            if cfg.l2:
-                loss = loss + l2_term(self._named_params)
-            grads = torch.autograd.grad(loss, self._params)
-            if self.mesh is not None:
-                *grads, loss = mesh_lib.pmean_grads(
-                    list(grads) + [loss.detach()], mesh_lib.DATA_AXIS)
-        opt = apply_optimizer_(self._params, grads, opt, lr, self.opt_config)
+        step, self._steps = self._steps, self._steps + 1
+        with profiling.span("joint.step", step):
+            with profiling.span("joint.batch"):
+                idx = idx[self._shard]
+                images = self._images[idx].float()
+                labels = self._labels[idx]
+                if cfg.augment:
+                    seeds = seeds[self._shard].contiguous()
+                    labels = labels.float()
+            if cfg.augment:
+                images, labels = self._augment(seeds, images, labels,
+                                               prob_original=0.0)
+            with (contextlib.nullcontext() if self.mesh is None
+                  else mesh_lib.bound(self.mesh)):
+                low_logits, _ = self.model(images, train=True,
+                                           generator=generator,
+                                           upsample=False)
+                loss = resized_cross_entropy(low_logits, labels,
+                                             cfg.label_smoothing)
+                del low_logits
+                if cfg.l2:
+                    loss = loss + l2_term(self._named_params)
+                with profiling.span("joint.backward"):
+                    grads = torch.autograd.grad(loss, self._params)
+                    if self.mesh is not None:
+                        *grads, loss = mesh_lib.pmean_grads(
+                            list(grads) + [loss.detach()], mesh_lib.DATA_AXIS)
+            opt = apply_optimizer_(self._params, grads, opt, lr,
+                                   self.opt_config)
         return opt, loss.detach()
 
     @torch.no_grad()

@@ -56,6 +56,7 @@ from mliis_tpu_torch.models import layers
 from mliis_tpu_torch.ops import losses as losses_lib
 from mliis_tpu_torch.parallel import mesh as mesh_lib
 from mliis_tpu_torch.parallel import spatial
+from mliis_tpu_torch.utils import profiling
 
 Tree = Dict[str, torch.Tensor]
 
@@ -133,6 +134,7 @@ def load_state(model: torch.nn.Module, state: ModelState) -> None:
             b.copy_(state.batch_stats[k])
 
 
+@profiling.spanned("optimizer.apply")
 def apply_optimizer_(params, grads, opt_state: OptState, lr: float,
                      opt_config: OptimizerConfig) -> OptState:
     """Update the `params` list in place; returns the new OptState."""

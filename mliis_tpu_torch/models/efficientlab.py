@@ -51,6 +51,7 @@ from mliis_tpu_torch.models import layers
 from mliis_tpu_torch.models.efficientnet import EfficientNetFeatures
 from mliis_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw
 from mliis_tpu_torch.parallel import spatial
+from mliis_tpu_torch.utils import profiling
 
 MEAN_RGB = (0.485 * 255, 0.456 * 255, 0.406 * 255)
 STDDEV_RGB = (0.229 * 255, 0.224 * 255, 0.225 * 255)
@@ -243,6 +244,7 @@ class EfficientLab(nn.Module):
             if module is not self and hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
 
+    @profiling.spanned("model.forward")
     def forward(self, images: torch.Tensor, train: bool = True,
                 final_layer_dropout_rate: Optional[float] = None,
                 generator: Optional[torch.Generator] = None,

@@ -62,6 +62,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from mliis_tpu_torch.utils import profiling
+
 NUM_OPS = 6
 _MAX_IMG_PLANES = 8  # kMaxImg in csrc/cheap_ops.cuh
 ROTATE_OP = 5
@@ -843,6 +845,7 @@ def _float_consts(noise_mean_sd, exposure_mean_sd, eraser_s_l, eraser_s_h,
             _f32(eraser_r_2 - eraser_r_1))
 
 
+@profiling.spanned("augment.full_pass")
 def full_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
               num: torch.Tensor, rot: torch.Tensor, *, c_img: int = 3,
               max_shift: int = 23, noise_mean_sd: float = 5.1,
@@ -910,6 +913,7 @@ def full_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
 full_pass.launches = 0
 
 
+@profiling.spanned("augment.cheap_pass")
 def cheap_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
                num: torch.Tensor, window: torch.Tensor, *, c_img: int = 3,
                max_shift: int = 23, noise_mean_sd: float = 5.1,
@@ -971,6 +975,7 @@ def _f32(v: float) -> float:
     return float(torch.tensor(v, dtype=torch.float32))
 
 
+@profiling.spanned("augment.light")
 def fused_light_augment(seeds: torch.Tensor, images: torch.Tensor,
                         masks: torch.Tensor, *, prob_original: float = 0.0,
                         max_shift: int = 23, noise_mean_sd: float = 5.1,

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from mliis_tpu_torch.ops.metrics import EPSILON, soft_iou_flat_per_example
 from mliis_tpu_torch.parallel import mesh as mesh_lib
+from mliis_tpu_torch.utils import profiling
 
 _BN_PATH_TOKENS = ("batch_normalization", "batchnorm", "bn")
 
@@ -114,6 +115,7 @@ def soft_dice_adjustment(ce_loss: torch.Tensor,
     return ce_loss - torch.log((2.0 * iou) / (iou + 1.0))
 
 
+@profiling.spanned("loss.l2")
 def l2_term(params: Dict[str, torch.Tensor],
             weight_decay: float = 0.0005) -> torch.Tensor:
     """weight_decay * sum of sum(v^2)/2 over non-batch-norm params."""

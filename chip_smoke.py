@@ -36,6 +36,16 @@ its phases, one line each (or a few):
      and at an odd B=8, 225^2: labels exact, images 1e-3 abs on 0..255;
      prob_original 1 must be the identity. Times both sizes and computes
      the bound; then B=2, 4 x 6000 (the direct mode) is checked alone.
+  4b. kernel[resized_ce]: the joint loss head's forward and backward
+     kernels against their plain version at the joint path's shape
+     ([64, 1001, 56, 56] NCHW logits to 224^2) and at an odd 6 x 1001 x
+     29 x 41 in channels-last to 113 x 167, label smoothing 0 and 0.1:
+     loss 1e-6 rel, gradient within 1e-5 of its norm and in the logits'
+     memory format, two runs bit-identical, exactly 2 launches a forward
+     and backward. Times both launches together (cold and warm L2) and
+     each alone, beside the bound (bytes at 3.35 TB/s, exponentials at
+     H100_EXP2_PER_S), the plain version and `library_ms`, the
+     F.interpolate + F.cross_entropy composition the kernels replaced.
   A kernel's time is the device time of a launch, from a CUDA graph of
   many launches: `cold_ms` with a cold L2 (the launches rotate through
   copies of the input, at least 2 x 50 MB apart, and keep every output),
@@ -51,7 +61,8 @@ its phases, one line each (or a few):
      1001 channels (4 x 32^2, float32) on the card, through the
      `fused_light_augment` kernel, against the CPU's, through its plain
      version: loss 1e-4 rel, each param's update within 1e-3 of the whole
-     update's norm.
+     update's norm; on the card exactly 1 `fused_light_augment` and 2
+     `resized_ce` launches.
   6. slice: two chained FOMAML* meta-steps at bench.py's configuration
      (EfficientLab-b0 rsd=(2, 4), bf16, final dropout 0.5; synthetic store
      8 tasks x 10 images at 224^2; meta-batch 5 x 59 inner steps at batch
@@ -71,8 +82,9 @@ its phases, one line each (or a few):
      width: 1000 synthetic classes (1001 output channels, 750 train tasks
      x 10 images on the card), EfficientLab-b0 rsd=(2,) in float32, 224^2,
      batch 64, SGD + l2 + augmentation, 12 steps and 2 val batches.
-     `fused_light_augment` must be launched exactly 12 times and no other
-     kernel, the params must be finite and changed, and the checkpoint
+     `fused_light_augment` must be launched exactly 12 times, `resized_ce`
+     24 (a forward and a backward a step) and no other kernel, the params
+     must be finite and changed, and the checkpoint
      must be in flax layout and read back through `restore_checkpoint`.
      Prints the store's build seconds, steps/s over the last 6 steps and
      the peak memory.
@@ -136,7 +148,7 @@ its phases, one line each (or a few):
      and gloo, and the launches are exact, summed over the ranks: 400 for
      either CLI, 9 a rank on the 1x2 step on the task axis and 5 x 9 =
      45 chained, 1
-     `fused_light_augment` a rank a step. Prints each run's seconds (a
+     `fused_light_augment` and 2 `resized_ce` a rank a joint step. Prints each run's seconds (a
      meta-step, a joint step), each rank's peak memory and the gaps.
   12. spatial: the image H axis split over ranks
      (mliis_tpu_torch/parallel/spatial.py) at full width: EfficientLab-b0
@@ -224,6 +236,9 @@ import warnings
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores
+# ex2.approx results a second: 16 a clock on each of the 132 SMs at the
+# H100 SXM's 1.98 GHz boost clock.
+H100_EXP2_PER_S = 16 * 132 * 1.98e9
 
 
 def log(*args):
@@ -357,20 +372,30 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-KERNELS = ("full_pass", "cheap_pass", "fused_light_augment")
+KERNELS = ("full_pass", "cheap_pass", "fused_light_augment", "resized_ce")
+
+
+def _wrapper(name):
+    """The kernel wrapper that counts the launches of `name`."""
+    from mliis_tpu_torch.ops import augment_kernels as ak
+    from mliis_tpu_torch.ops import resized_ce as rce
+    return getattr(rce if name == "resized_ce" else ak, name)
 
 
 def reset_launches():
     """Every kernel wrapper's launch count set to 0."""
-    from mliis_tpu_torch.ops import augment_kernels as ak
     for name in KERNELS:
-        getattr(ak, name).launches = 0
+        _wrapper(name).launches = 0
 
 
 def read_launches():
     """{kernel: launches since the last reset}."""
-    from mliis_tpu_torch.ops import augment_kernels as ak
-    return {name: getattr(ak, name).launches for name in KERNELS}
+    return {name: _wrapper(name).launches for name in KERNELS}
+
+
+def expected(**counts):
+    """{kernel: launches}: `counts`, and 0 for every other kernel."""
+    return dict({name: 0 for name in KERNELS}, **counts)
 
 
 def graph_ms(fn, reps):
@@ -877,6 +902,204 @@ def phase_light_kernel(dev):
                  "library_ms": None, "sizes": sizes, **usage}, **entry)
 
 
+# The joint path's loss head at the cell's shape ([64, 1001, 56, 56] to
+# 224^2, NCHW as the model hands it over), and at an odd shape in
+# channels-last.
+HEAD_SIZES = ((64, 1001, 56, 56, 224, 224, False),
+              (6, 1001, 29, 41, 113, 167, True))
+
+
+def _head_composition(low, labels, eps, chunk):
+    """The head `resized_ce` replaced: F.interpolate and F.cross_entropy a
+    batch chunk at a time (the yardstick `library_ms` times)."""
+    import torch.nn.functional as F
+    n, (out_h, out_w) = low.shape[0], labels.shape[1:]
+    total = 0.0
+    for i in range(0, n, chunk):
+        logits = F.interpolate(low[i:i + chunk], size=(out_h, out_w),
+                               mode="bilinear", align_corners=True)
+        total = total + F.cross_entropy(logits, labels[i:i + chunk].long(),
+                                        label_smoothing=eps, reduction="sum")
+    return total / (n * out_h * out_w)
+
+
+def _head_at(dev, n, c, h, w, out_h, out_w, channels_last):
+    """`resized_ce`'s kernels against its plain version at one shape, label
+    smoothing 0 and 0.1: loss within 1e-6 rel, gradient within 1e-5 of its
+    norm and in the logits' memory format, two runs bit-identical, exactly
+    2 launches a forward and backward. Returns (the worst gradient gap
+    relative to its norm, the largest absolute gradient error, the inputs,
+    the chunk of the plain version)."""
+    import torch
+    from mliis_tpu_torch.joint.trainer import _chunk
+    from mliis_tpu_torch.ops import resized_ce as rce
+    gen = torch.Generator(device=dev).manual_seed(21)
+    low = torch.randn(n, c, h, w, generator=gen, device=dev) * 3
+    if channels_last:
+        low = low.contiguous(memory_format=torch.channels_last)
+    labels = torch.randint(0, c, (n, out_h, out_w), generator=gen,
+                           device=dev).float()
+    chunk = _chunk(n, c, out_h, out_w)
+    one = torch.ones((), device=dev)
+    worst = worst_abs = 0.0
+    for eps in (0.0, 0.1):
+        runs = []
+        for _ in range(2):
+            reset_launches()
+            x = low.detach().requires_grad_(True)
+            loss = rce.resized_ce(x, labels, eps)
+            (grad,) = torch.autograd.grad(loss, x)
+            torch.cuda.synchronize()
+            runs.append((loss.detach(), grad, read_launches()["resized_ce"]))
+        ref_loss, lse = rce.resized_ce_forward_reference(low, labels, eps,
+                                                         chunk)
+        ref_grad = rce.resized_ce_backward_reference(low, labels, lse, one,
+                                                     eps, chunk)
+        loss_gap = abs(float(runs[0][0]) - float(ref_loss)) \
+            / abs(float(ref_loss))
+        grad_gap = float((runs[0][1] - ref_grad).norm() / ref_grad.norm())
+        same = all(torch.equal(a, b) for a, b in zip(runs[0][:2],
+                                                      runs[1][:2]))
+        layout = runs[0][1].stride() == low.stride()
+        launches = [r[2] for r in runs]
+        finite = bool(runs[0][1].isfinite().all())
+        log("kernel[resized_ce]: {} x {} x {}x{} -> {}x{} {}, eps {} | loss "
+            "{:.7f} vs plain {:.7f} (rel {:.3g} <= 1e-6) | |dg| / |g| {:.3g} "
+            "(<= 1e-5) | two runs bit-identical {} | gradient in the input's "
+            "layout {} | launches {} (expect [2, 2])".format(
+                n, c, h, w, out_h, out_w,
+                "channels-last" if channels_last else "NCHW", eps,
+                float(runs[0][0]), float(ref_loss), loss_gap, grad_gap, same,
+                layout, launches))
+        if not (loss_gap <= 1e-6 and grad_gap <= 1e-5 and same and layout
+                and launches == [2, 2] and finite):
+            raise AssertionError("resized_ce disagrees with its plain "
+                                 "version")
+        worst = max(worst, grad_gap)
+        worst_abs = max(worst_abs, float((runs[0][1] - ref_grad).abs().max()))
+        del runs, ref_grad, lse
+        torch.cuda.empty_cache()
+    return worst, worst_abs, (low, labels), chunk
+
+
+def _head_guards(dev):
+    """`resized_ce`'s kernels at a small shape: a label outside [0, C)
+    (C or -1, float or integer) makes the loss and the gradient NaN; forwards
+    on two streams at once each give the plain version's loss (each launch
+    counts its own finished blocks)."""
+    import torch
+    from mliis_tpu_torch.ops import resized_ce as rce
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, c, out_h, out_w = 3, 1001, 30, 33
+    low = torch.randn(n, c, 7, 9, generator=gen, device=dev) * 3
+    labels = torch.randint(0, c, (n, out_h, out_w), generator=gen,
+                           device=dev)
+    poisoned = []
+    for bad in (c, -1):
+        for dtype in (torch.float32, torch.int32):
+            lab = labels.to(dtype)
+            lab[1, 4, 5] = bad
+            x = low.detach().requires_grad_(True)
+            loss = rce.resized_ce(x, lab, 0.1)
+            (grad,) = torch.autograd.grad(loss, x)
+            poisoned.append(bool(loss.isnan()) and bool(grad[1].isnan().any())
+                            and bool(grad[0].isfinite().all()))
+    ref = [float(rce.resized_ce_forward_reference(low[i:], labels[i:])[0])
+           for i in range(2)]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize(dev)
+    losses = []
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                losses.append((i, rce.resized_ce(low[i:], labels[i:])))
+    torch.cuda.synchronize(dev)
+    gap = max(abs(float(l) - ref[i]) / abs(ref[i]) for i, l in losses)
+    log("kernel[resized_ce] guards: a label out of range gives a NaN loss "
+        "and NaN gradient on its image alone {} (expect 4 x True) | 40 "
+        "forwards on two streams at once, largest rel gap to plain {:.3g} "
+        "(<= 1e-6)".format(poisoned, gap))
+    if not (all(poisoned) and gap <= 1e-6):
+        raise AssertionError("resized_ce's guards failed")
+
+
+def phase_head_kernel(dev):
+    """`resized_ce` at HEAD_SIZES against its plain version; the forward
+    and backward timed together (cold and warm L2) and alone (warm), beside
+    the bound (its bytes at HBM3's rate, its exponentials at the SFUs'),
+    the plain version and the composition it replaced (`library_ms`); then
+    `_head_guards`."""
+    import torch
+    from mliis_tpu_torch.ops import resized_ce as rce
+    _head_guards(dev)
+    sizes = {}
+    usage = BUILD_USAGE.get("resized_ce", {})
+    one = torch.ones((), device=dev)
+    for n, c, h, w, out_h, out_w, channels_last in HEAD_SIZES:
+        rel, err, (low, labels), chunk = _head_at(dev, n, c, h, w, out_h,
+                                                  out_w, channels_last)
+        pixels = n * out_h * out_w
+        # The logits read by each launch, their gradient written, the labels
+        # read, the statistics written and read back.
+        bytes_moved = 3 * low.numel() * 4 + pixels * (4 + 2 * 8)
+        exps = 2 * pixels * c
+        t_bytes = 1e3 * bytes_moved / H100_BYTES_PER_S
+        t_exps = 1e3 * exps / H100_EXP2_PER_S
+        bound_ms = max(t_bytes, t_exps)
+
+        def both(x, lab):
+            _, stats = rce._forward_kernel(x, lab, 0.0)
+            return rce._backward_kernel(x, stats, one, 0.0)
+
+        t = kernel_times(both, (low, labels), bytes_moved, 10)
+        fwd_ms = cuda_ms(lambda: rce._forward_kernel(low, labels, 0.0), 10)
+        _, stats = rce._forward_kernel(low, labels, 0.0)
+        bwd_ms = cuda_ms(lambda: rce._backward_kernel(low, stats, one, 0.0),
+                         10)
+
+        def plain():
+            _, lse = rce.resized_ce_forward_reference(low, labels, 0.0,
+                                                      chunk)
+            return rce.resized_ce_backward_reference(low, labels, lse, one,
+                                                     0.0, chunk)
+
+        def library():
+            x = low.detach().requires_grad_(True)
+            return torch.autograd.grad(
+                _head_composition(x, labels, 0.0, chunk), x)
+
+        plain_ms = cuda_ms(plain, 2)
+        torch.cuda.empty_cache()
+        library_ms = cuda_ms(library, 2)
+        torch.cuda.empty_cache()
+        tag = _size_tag(n, out_h, out_w)
+        log("kernel[resized_ce] {} x {} x {}x{} -> {}x{}: {} | forward {:.4f} "
+            "ms, backward {:.4f} ms (warm, eager) | bound: bytes {:.4f} ms "
+            "({:.4g} GB at 3.35 TB/s), exponentials {:.4f} ms ({:.4g} at "
+            "{:.4g}/s) | plain_ms {:.2f} | library_ms {:.2f} (F.interpolate + "
+            "F.cross_entropy, chunks of {}) | {} registers, {} B "
+            "spilled".format(n, c, h, w, out_h, out_w,
+                             _times_text(t, bound_ms), fwd_ms, bwd_ms,
+                             t_bytes, bytes_moved / 1e9, t_exps, float(exps),
+                             H100_EXP2_PER_S, plain_ms,
+                             library_ms, chunk, usage.get("registers"),
+                             usage.get("spill_bytes")))
+        sizes[tag] = dict(t, max_abs_err=err, max_rel_grad_err=rel,
+                          fwd_ms=fwd_ms,
+                          bwd_ms=bwd_ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound_ms,
+                          bound_bytes_ms=t_bytes, bound_exp_ms=t_exps,
+                          bound_share=bound_ms / t["cold_ms"])
+        del low, labels, stats
+        torch.cuda.empty_cache()
+    n, _, _, _, out_h, out_w, _ = HEAD_SIZES[0]
+    entry = dict(sizes[_size_tag(n, out_h, out_w)])
+    entry["max_abs_err"] = max(s["max_abs_err"] for s in sizes.values())
+    return dict({"name": "resized_ce", "route": "cuda",
+                 "source": "mliis_tpu_torch/csrc/resized_ce.cu",
+                 "replaces": None, "sizes": sizes, **usage}, **entry)
+
+
 def _loss_and_grads(dev, init_state, images, masks):
     """Loss and gradients of one train-mode forward of EfficientLab-b0 in
     float32, without drop-connect or dropout."""
@@ -943,6 +1166,7 @@ def phase_agree_joint(dev):
     init.reset_parameters(torch.Generator().manual_seed(0))
     start = {k: v.detach().clone() for k, v in init.named_parameters()}
     out = []
+    reset_launches()
     for d in (dev, torch.device("cpu")):
         model = EfficientLab(n_classes=1000, rsd=(2,),
                              final_layer_dropout_rate=0.0)
@@ -959,15 +1183,17 @@ def phase_agree_joint(dev):
         out.append((float(loss), {k: v.detach().cpu() - start[k]
                                   for k, v in model.named_parameters()}))
     (loss_card, upd_card), (loss_cpu, upd_cpu) = out
+    launches = read_launches()
+    expect = expected(fused_light_augment=1, resized_ce=2)
     norm = float(torch.sqrt(sum(u.square().sum() for u in upd_cpu.values())))
     worst = max(float((upd_card[k] - upd_cpu[k]).norm())
                 for k in upd_cpu) / norm
     loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    log("agree[joint]: card (kernel) vs cpu (plain version), 1001 channels, "
-        "4 x 32^2 | loss {:.6f} vs {:.6f} (rel {:.3g} <= 1e-4) | max_k "
-        "|du_k| / |u| {:.3g} (<= 1e-3)".format(loss_card, loss_cpu,
-                                               loss_err, worst))
-    if not (loss_err <= 1e-4 and worst <= 1e-3):
+    log("agree[joint]: card (kernels) vs cpu (plain versions), 1001 "
+        "channels, 4 x 32^2 | loss {:.6f} vs {:.6f} (rel {:.3g} <= 1e-4) | "
+        "max_k |du_k| / |u| {:.3g} (<= 1e-3) | launches {} (expect "
+        "{})".format(loss_card, loss_cpu, loss_err, worst, launches, expect))
+    if not (loss_err <= 1e-4 and worst <= 1e-3 and launches == expect):
         raise AssertionError("the card's joint step disagrees with the CPU's")
 
 
@@ -1018,8 +1244,7 @@ def phase_slice(dev):
         SLICE["states"].append(state)
     launches = read_launches()
     SLICE["peak"] = torch.cuda.max_memory_allocated(dev)
-    expect = {"full_pass": 2 * 5 * 58, "cheap_pass": 0,
-              "fused_light_augment": 0}
+    expect = expected(full_pass=2 * 5 * 58)
     finite = all(bool(v.isfinite().all()) for v in state.params.values())
     moved = sum(float((state.params[k] - start[k]).abs().sum())
                 for k in start)
@@ -1105,9 +1330,8 @@ def phase_eval(dev):
             counts["eval_" + route] = launches
             ious = [v[0] for v in task_map.values()]
             steps = EVAL_TASKS * EVAL_STEPS
-            expect = {"full_pass": steps if fused else 0,
-                      "cheap_pass": 0 if fused else 2 * steps,
-                      "fused_light_augment": 0}
+            expect = expected(full_pass=steps if fused else 0,
+                              cheap_pass=0 if fused else 2 * steps)
             EVAL[route] = {"iou": mean_iou, "wall": wall,
                            "task_ious": ["{:.3f}".format(v) for v in ious]}
             log("eval[{}]: {} tasks | mean IoU {:.4f} +/- {:.4f} (95% CI; "
@@ -1177,8 +1401,8 @@ def phase_joint(dev):
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = read_launches()
-        expect = {"full_pass": 0, "cheap_pass": 0,
-                  "fused_light_augment": JOINT_STEPS}
+        expect = expected(fused_light_augment=JOINT_STEPS,
+                          resized_ce=2 * JOINT_STEPS)
         peak = torch.cuda.max_memory_allocated(dev)
         out = "".join(tee.parts)
         store_s = float(re.search(r"built in ([0-9.]+) s", out).group(1))
@@ -1314,8 +1538,7 @@ def phase_train(dev):
     counts, failed = {}, []
 
     def check(run, launches, full_pass, ok, text):
-        expect = {"full_pass": full_pass, "cheap_pass": 0,
-                  "fused_light_augment": 0}
+        expect = expected(full_pass=full_pass)
         counts[run] = launches
         log("{}: {} | launches {} (expect {})".format(run, text, launches,
                                                       expect))
@@ -1516,8 +1739,7 @@ def phase_batched(dev):
     counts, failed = {}, []
 
     def check(path, launches, full_pass, ok, text, cheap=0):
-        expect = {"full_pass": full_pass, "cheap_pass": cheap,
-                  "fused_light_augment": 0}
+        expect = expected(full_pass=full_pass, cheap_pass=cheap)
         counts[path] = launches
         log("batched[{}]: {} | launches {} (expect {})".format(
             path, text, launches, expect))
@@ -1912,8 +2134,7 @@ def phase_traces(dev):
     counts, failed = {}, []
 
     def check(path, launches, full_pass, ok, text):
-        expect = {"full_pass": full_pass, "cheap_pass": 0,
-                  "fused_light_augment": 0}
+        expect = expected(full_pass=full_pass)
         counts[path] = launches
         log("traces[{}]: {} | launches {} (expect {})".format(
             path, text, launches, expect))
@@ -2145,8 +2366,7 @@ def phase_decoders(dev):
     counts, failed = {}, []
 
     def check(run, launches, full_pass, ok, text):
-        expect = {"full_pass": full_pass, "cheap_pass": 0,
-                  "fused_light_augment": 0}
+        expect = expected(full_pass=full_pass)
         counts[run] = launches
         log("{}: {} | launches {} (expect {})".format(run, text, launches,
                                                       expect))
@@ -2560,8 +2780,7 @@ def phase_mesh(dev):
         n_test = max(args.synthetic_tasks // 4, 1)
         cli_expect, terms = _expected_train_launches(
             args, args.synthetic_tasks - n_test, n_test)
-        cli_expect = {"full_pass": cli_expect, "cheap_pass": 0,
-                      "fused_light_augment": 0}
+        cli_expect = expected(full_pass=cli_expect)
         init = EfficientLab(**args_lib.model_kwargs(args))
         init.reset_parameters(torch.Generator().manual_seed(args.seed))
         cli_start = _cpu_state(init_model_state(init,
@@ -2584,9 +2803,7 @@ def phase_mesh(dev):
                   backend_w1.group(1) if backend_w1 else None, wall,
                   t_w1["meta_step"]["mean_s"], iou_w1, peak / 1e9, terms))
 
-        step_expect = {"full_pass": 5 * (MESH_STEP_ITERS - 1),
-                       "cheap_pass": 0,
-                       "fused_light_augment": 0}
+        step_expect = expected(full_pass=5 * (MESH_STEP_ITERS - 1))
         model, (imgs, msks, mcounts), cfg, state = _mesh_meta_setup(dev)
         start = _cpu_state(state)
         walls, refs = {}, {}
@@ -2625,8 +2842,8 @@ def phase_mesh(dev):
         joint_ref, j_seconds, launches, j_peak = _run_joint(
             model, ds, jcfg, batches, state, dev)
         check("mesh_joint_unsharded", launches,
-              {"full_pass": 0, "cheap_pass": 0,
-               "fused_light_augment": MESH_JOINT_STEPS}, True,
+              expected(fused_light_augment=MESH_JOINT_STEPS,
+                       resized_ce=2 * MESH_JOINT_STEPS), True,
               "joint steps at batch 64, 1001 channels, unsharded | seconds "
               "a step {} | peak memory {:.2f} GB".format(
                   ["{:.4f}".format(s) for s in j_seconds], j_peak / 1e9))
@@ -2683,8 +2900,7 @@ def phase_mesh(dev):
             if name == "step_1x2":
                 ok = ok and chained_gap[1] <= MESH_BATCHED_BAR
             check("mesh_" + name, ranks[0][name]["launches"],
-                  {"full_pass": MESH_RANKS * per_rank, "cheap_pass": 0,
-                   "fused_light_augment": 0}, ok,
+                  expected(full_pass=MESH_RANKS * per_rank), ok,
                   "1x2 (task, data) meta-step, sync-BN, {} | wall {} s "
                   "(unsharded {:.3f}, task mesh of 1 {:.3f}) | largest gap "
                   "to the unsharded step {:.3g} ({:.3g} of its largest "
@@ -2707,8 +2923,8 @@ def phase_mesh(dev):
         js = ranks[0]["joint"]
         gap = _state_gap(states["joint"], joint_ref, jstart)
         check("mesh_joint_w2", js["launches"],
-              {"full_pass": 0, "cheap_pass": 0,
-               "fused_light_augment": MESH_RANKS * MESH_JOINT_STEPS},
+              expected(fused_light_augment=MESH_RANKS * MESH_JOINT_STEPS,
+                       resized_ce=2 * MESH_RANKS * MESH_JOINT_STEPS),
               gap[1] <= MESH_JOINT_BAR and all(
                   r["joint"]["rank_launches"]["fused_light_augment"]
                   == MESH_JOINT_STEPS for r in ranks),
@@ -3088,7 +3304,7 @@ def phase_curve(dev):
     args = _curve_script().argument_parser().parse_args(
         CURVE_ARGV + ["--out", "unused"])
     total, terms = _expected_curve_launches(args)
-    expect = {"full_pass": total, "cheap_pass": 0, "fused_light_augment": 0}
+    expect = expected(full_pass=total)
     with open(os.path.join("experiments", "curve_v2_seed1",
                            "result.json")) as f:
         keys = set(json.load(f)) | {"device"}
@@ -3165,7 +3381,7 @@ def _drive(dev):
 
     run(phase_build)
     entries = [run(phase_kernel, dev), run(phase_cheap_kernel, dev),
-               run(phase_light_kernel, dev)]
+               run(phase_light_kernel, dev), run(phase_head_kernel, dev)]
     run(phase_agree, dev)
     run(phase_agree_joint, dev)
     by_path = {"slice": run(phase_slice, dev)}
@@ -3210,7 +3426,7 @@ def main() -> int:
     # meta-step for full_pass, the split-route evaluation for cheap_pass,
     # the joint run for fused_light_augment; every path's counts beside.
     main_path = {"full_pass": "slice", "cheap_pass": "eval_split",
-                 "fused_light_augment": "joint"}
+                 "fused_light_augment": "joint", "resized_ce": "joint"}
     for e in entries:
         e["launches"] = by_path[main_path[e["name"]]][e["name"]]
         e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}

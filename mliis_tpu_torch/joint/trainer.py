@@ -12,11 +12,13 @@ learning-rate anneal, periodic validation and checkpoints.
   - At 1001 channels, 224^2 and batch 64 the full-resolution logits have
     3.2e9 elements: past 2^31, which some of PyTorch's CUDA kernels on
     that path cannot index (the launch fails). The train step therefore
-    takes the model's logits at the decoder's resolution and resizes and
-    takes the CE a batch chunk at a time (`resized_cross_entropy`), and
-    the val step runs its forward a chunk at a time (eval-mode batch norm
-    makes the chunks independent). Each chunk holds under 2^31 elements;
-    the chunks change no result.
+    takes the model's logits at the decoder's resolution and hands them to
+    the loss head (`resized_cross_entropy`): on the card one kernel each
+    way (`ops/resized_ce`) resizes and takes the CE without writing the
+    full-resolution logits, the whole batch at once; its plain version, on
+    the CPU, takes a batch chunk at a time. The val step runs its forward a chunk at a time
+    (eval-mode batch norm makes the chunks independent). Each chunk holds
+    under 2^31 elements; the chunks change no result.
   - Each step gathers its batch from the device-resident uint8 store as
     float32 and, with `augment`, runs one `fused_light_augment` launch on
     per-sample seeds (prob_original 0). `use_pallas_augment=False` takes
@@ -31,8 +33,8 @@ learning-rate anneal, periodic validation and checkpoints.
     of both, so `fused_light_augment` draws for each sample what the
     whole batch would; the model's batch norms sync their moments over
     the axis (it must be built with `bn_axis_name="data"`), and the loss
-    and gradients are averaged over it. The chunked head works on the
-    local batch. Dropout and drop-connect draw each rank's own stream.
+    and gradients are averaged over it. The head works on the local
+    batch. Dropout and drop-connect draw each rank's own stream.
     Rank 0 alone writes the metrics and checkpoints and logs.
   - Under `utils/profiling.spans` (and `utils/profiling.trace`) each train
     step is a `joint.step` span, the step's index its input, holding its
@@ -57,8 +59,9 @@ from mliis_tpu_torch.meta.inner_loop import (ModelState, OptimizerConfig,
                                              load_state, snapshot)
 from mliis_tpu_torch.ops import augment_kernels
 from mliis_tpu_torch.ops.losses import l2_term
-from mliis_tpu_torch.ops.resize import resize_bilinear_align_corners_nchw
+from mliis_tpu_torch.ops.resized_ce import resized_ce
 from mliis_tpu_torch.parallel import mesh as mesh_lib
+from mliis_tpu_torch.parallel import spatial
 from mliis_tpu_torch.utils import checkpoint as ckpt_lib
 from mliis_tpu_torch.utils import profiling
 from mliis_tpu_torch.utils.logging import MetricsWriter
@@ -124,19 +127,16 @@ def _chunk(n: int, c: int, h: int, w: int) -> int:
 def resized_cross_entropy(low_logits: torch.Tensor, labels: torch.Tensor,
                           label_smoothing: float = 0.0) -> torch.Tensor:
     """`sparse_segmentation_loss` of NCHW logits at the decoder's
-    resolution, resized (align corners) to the labels' [N, H, W], one
-    batch chunk of under 2^31 logits at a time."""
+    resolution, resized (align corners) to the labels' [N, H, W]:
+    `resized_ce`, whose plain version takes one batch chunk of under 2^31
+    logits at a time. It takes whole images: not under a bound spatial
+    context."""
+    if spatial.current() is not None:
+        raise ValueError("the joint loss head takes whole images, not H shards")
     n, c = low_logits.shape[:2]
     h, w = labels.shape[1:]
-    k = _chunk(n, c, h, w)
-    total = 0.0
-    for i in range(0, n, k):
-        logits = resize_bilinear_align_corners_nchw(low_logits[i:i + k], h,
-                                                    w)
-        total = total + F.cross_entropy(
-            logits, labels[i:i + k].long(), label_smoothing=label_smoothing,
-            reduction="sum")
-    return total / (n * h * w)
+    return resized_ce(low_logits, labels, label_smoothing,
+                      chunk=_chunk(n, c, h, w))
 
 
 @dataclasses.dataclass

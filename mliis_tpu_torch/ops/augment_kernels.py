@@ -73,7 +73,8 @@ TRANSLATE, FLIPLR, NOISE, EXPOSURE = range(len(LIGHT_OPS))
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PACKAGE, "csrc")
-KERNEL_SOURCES = ("full_pass", "cheap_pass", "light_augment")  # csrc/<name>.cu
+# csrc/<name>.cu; resized_ce is the joint loss head's (ops/resized_ce.py).
+KERNEL_SOURCES = ("full_pass", "cheap_pass", "light_augment", "resized_ce")
 _HEADERS = ("philox.cuh", "cheap_ops.cuh", "row_ring.cuh")
 BUILD_DIR = os.path.join(_PACKAGE, "_build")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -805,15 +806,21 @@ _ARGTYPES = {
     + [_PTR],
     "light_augment": [_PTR] * 5 + [_I32] * 4 + [_F32] * 3 + [_I32] * 4
     + [_PTR],
+    "resized_ce_forward": [_PTR, _I32] * 4 + [_PTR] * 7 + [_I32] * 6
+    + [_F32, _I32, _PTR],
+    "resized_ce_backward": [_PTR, _I32] + [_PTR] * 4 + [_I32] + [_PTR] * 5
+    + [_I32] * 6 + [_F32, _I32, _PTR],
 }
 
 
 @functools.lru_cache(maxsize=None)
-def _library(name: str) -> Callable:
-    """The C launch function `<name>_launch` of csrc/<name>.cu."""
+def _library(name: str, function: Optional[str] = None) -> Callable:
+    """The C launch function `<function>_launch` (by default `<name>_launch`)
+    of csrc/<name>.cu."""
+    function = function or name
     lib = ctypes.CDLL(build_library((name,))[name][0])
-    fn = getattr(lib, name + "_launch")
-    fn.argtypes = _ARGTYPES[name]
+    fn = getattr(lib, function + "_launch")
+    fn.argtypes = _ARGTYPES[function]
     fn.restype = _I32
     return fn
 

@@ -1,9 +1,11 @@
-"""What the harness's drivers share: the card check, the synthetic stores
-made on the device from the seed, the program's weights from the
-reference's, the leaf-by-leaf comparison of trained weights, and the
-reduction of a profiler trace to intervals.
+"""What the harness's drivers share: the card check, the program's model
+built from a configuration, the synthetic stores made on the device from
+the seed, the program's weights from the reference's, the leaf-by-leaf
+comparison of trained weights, and the reduction of a profiler trace to
+intervals.
 
-Imports torch and the reference only; the drivers import the program.
+Imports torch, the reference and the span table at module level; the
+program only inside `program_model`.
 """
 import dataclasses
 import json
@@ -16,12 +18,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from portbench.reference import train as ref
-from portbench.reference.model import is_buffer
+from portbench.reference.model import Arch, is_buffer
+from portbench.spans import SpanTable
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FAMILIES = ("rect", "ellipse", "cross", "stripes", "triangle", "ring",
             "diamond", "lshape")
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "optax", "mliis_tpu")
+# The `model` keys of a configuration that the harness honours: those
+# `program_model` builds from, and `image_size`, every driver's input size.
+MODEL_KEYS = ("backbone", "max_block", "decoder_dim", "rsd", "n_classes",
+              "final_layer_dropout_rate", "compute_dtype", "image_size")
 
 
 def load_json(*parts: str) -> dict:
@@ -35,6 +42,43 @@ def shrink(config: dict, small: Optional[dict]) -> dict:
     if not small or "model" not in small:
         return config
     return dict(config, model=dict(config["model"], **small["model"]))
+
+
+def program_model(config: dict, device) -> torch.nn.Module:
+    """The program's EfficientLab as the configuration's `model` states it
+    (the mapping of `Arch.from_config`), on `device`. Raises ValueError,
+    naming the key, for a configuration the program would not honour: a
+    key no driver reads, a backbone the program has no table for, a
+    compute dtype it has no name for, or a `max_block` or `decoder_dim`
+    other than the built model's."""
+    from mliis_tpu_torch.models.efficientlab import EfficientLab
+    m = config["model"]
+    unread = sorted(set(m) - set(MODEL_KEYS))
+    if unread:
+        raise ValueError("model.{}: no driver reads it".format(unread[0]))
+    if m["compute_dtype"] not in ("float32", "bfloat16"):
+        raise ValueError("model.compute_dtype: {!r} is neither float32 nor "
+                         "bfloat16".format(m["compute_dtype"]))
+    arch = Arch.from_config(config)
+    try:
+        model = EfficientLab(
+            n_classes=m["n_classes"], separate_background_channel=True,
+            feature_extractor_name=m["backbone"], rsd=tuple(m["rsd"]),
+            final_layer_dropout_rate=m["final_layer_dropout_rate"],
+            compute_dtype=arch.compute_dtype)
+    except KeyError as err:
+        if err.args != (m["backbone"],):
+            raise
+        raise ValueError("model.backbone: the program has no table for "
+                         "{!r}".format(m["backbone"])) from None
+    features = getattr(model, model.backbone_name)
+    built = {"max_block": len(features.blocks_args) - 1,
+             "decoder_dim": model.final_layer_weights.kernel.shape[1]}
+    for key, value in built.items():
+        if m[key] != value:
+            raise ValueError("model.{}: {} stated, the program builds "
+                             "{}".format(key, m[key], value))
+    return model.to(device)
 
 
 def forbidden_modules(names: Sequence[str]) -> List[str]:
@@ -156,6 +200,7 @@ class Trace:
     window_flops: float = 0.0
     window_s: float = 0.0
     compute: str = "bfloat16"
+    spans: Optional[SpanTable] = None   # the span slice's, where profiled
 
     @property
     def kernels(self) -> List[Tuple[str, float, float]]:

@@ -18,7 +18,7 @@ from typing import List
 import torch
 
 from portbench.common import (FAMILIES, leaf_checks, load_port_weights,
-                              render_tasks, shrink, sync)
+                              program_model, render_tasks, shrink, sync)
 from portbench.reference import draws as dr
 from portbench.reference import train as ref
 from portbench.reference.model import Arch, make_weights
@@ -32,7 +32,6 @@ class Cell:
                  limits: dict, small: dict = None):
         from mliis_tpu_torch.joint import trainer as jt
         from mliis_tpu_torch.meta import inner_loop as il
-        from mliis_tpu_torch.models.efficientlab import EfficientLab
 
         small = small or {}
         self.traffic, self.limits = traffic, limits
@@ -41,14 +40,9 @@ class Cell:
         self.data = dict(config["data"], **small.get("data", {}))
         self.size = small.get("image_size", config["model"]["image_size"])
         config = shrink(config, small)
+        self.model = program_model(config, device)
         self.arch = Arch.from_config(config)
         self.gen = torch.Generator(device=device).manual_seed(seed)
-        self.model = EfficientLab(
-            n_classes=config["model"]["n_classes"],
-            separate_background_channel=True,
-            rsd=tuple(config["model"]["rsd"]),
-            final_layer_dropout_rate=config["model"][
-                "final_layer_dropout_rate"]).to(device)
         self.jt, self.il = jt, il
         self.losses: List[torch.Tensor] = []
         self.batches: List[tuple] = []

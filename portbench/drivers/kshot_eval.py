@@ -18,7 +18,8 @@ from typing import List
 import numpy as np
 import torch
 
-from portbench.common import FAMILIES, ROOT, render_tasks, shrink, sync
+from portbench.common import (FAMILIES, ROOT, program_model, render_tasks,
+                              shrink, sync)
 from portbench.reference import draws as dr
 from portbench.reference import train as ref
 from portbench.reference.model import Arch, weights_from_npz
@@ -33,7 +34,6 @@ class Cell:
         from mliis_tpu_torch.data.task_store import TaskStore
         from mliis_tpu_torch.meta import evaluate as ev
         from mliis_tpu_torch.meta import inner_loop as il
-        from mliis_tpu_torch.models.efficientlab import EfficientLab
 
         small = small or {}
         self.traffic, self.limits = traffic, limits
@@ -43,15 +43,11 @@ class Cell:
         self.size = small.get("image_size", config["model"]["image_size"])
         self.chunk = small.get("chunk", traffic["chunk"])
         config = shrink(config, small)
+        self.model = program_model(config, device)
         self.arch = Arch.from_config(config)
         self.seed = seed
         self.gen = torch.Generator(device=device).manual_seed(seed)
         e = self.e
-        self.model = EfficientLab(
-            rsd=tuple(config["model"]["rsd"]),
-            final_layer_dropout_rate=config["model"][
-                "final_layer_dropout_rate"],
-            compute_dtype=self.arch.compute_dtype).to(device)
         self.eval_config = ev.EvalConfig(
             num_shots=e["num_shots"], test_shots=e["test_shots"],
             inner_batch_size=e["inner_batch"], inner_iters=e["inner_iters"],

@@ -17,7 +17,7 @@ from typing import Dict, List
 import torch
 
 from portbench.common import (FAMILIES, leaf_checks, load_port_weights,
-                              render_tasks, shrink, sync)
+                              program_model, render_tasks, shrink, sync)
 from portbench.reference import draws as dr
 from portbench.reference import train as ref
 from portbench.reference.model import Arch, make_weights
@@ -31,7 +31,6 @@ class Cell:
                  limits: dict, small: dict = None):
         from mliis_tpu_torch.meta import inner_loop as il
         from mliis_tpu_torch.meta import learners
-        from mliis_tpu_torch.models.efficientlab import EfficientLab
 
         self.traffic, self.limits = traffic, limits
         self.dev = device
@@ -40,14 +39,10 @@ class Cell:
         self.size = (small or {}).get("image_size",
                                       config["model"]["image_size"])
         config = shrink(config, small)
+        self.model = program_model(config, device)
         self.arch = Arch.from_config(config)
         self.gen = torch.Generator(device=device).manual_seed(seed)
         m = self.m
-        self.model = EfficientLab(
-            rsd=tuple(config["model"]["rsd"]),
-            final_layer_dropout_rate=config["model"][
-                "final_layer_dropout_rate"],
-            compute_dtype=self.arch.compute_dtype).to(device)
         self.meta_config = learners.MetaTrainConfig(
             num_shots=m["num_shots"], inner_batch_size=m["inner_batch"],
             inner_iters=m["inner_iters"], meta_batch_size=m["meta_batch"],

@@ -2,9 +2,8 @@
 backward: the kernels and copies that `portbench/spans.py` puts down to
 the `loss.head` span (the resize to the labels and the cross entropy),
 from a slice profiled with the program's spans on."""
-from portbench import spans
 
 
 def read(trace):
-    table = spans.for_trace(trace)
+    table = trace.spans
     return None if table is None else table.device_ms("loss.head")

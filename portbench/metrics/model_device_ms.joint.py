@@ -2,9 +2,8 @@
 kernels and copies put down to the `model.forward` span (EfficientNet-b0
 to block 10, the RSD decoder, the 1001-channel conv), from a slice
 profiled with the program's spans on (`portbench/spans.py`)."""
-from portbench import spans
 
 
 def read(trace):
-    table = spans.for_trace(trace)
+    table = trace.spans
     return None if table is None else table.device_ms("model.forward")

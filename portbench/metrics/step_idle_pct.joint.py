@@ -2,9 +2,8 @@
 the host's main thread is inside a `joint.step` span, over the wall of a
 slice profiled with the program's spans on (`portbench/spans.py`); the
 seed and epoch draws between steps are left out."""
-from portbench import spans
 
 
 def read(trace):
-    table = spans.for_trace(trace)
+    table = trace.spans
     return None if table is None else table.step_idle_pct()

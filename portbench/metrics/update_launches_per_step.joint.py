@@ -1,10 +1,9 @@
 """Device kernels a joint step launches for the update: those put down to
 the `loss.l2` and `optimizer.apply` spans (`portbench/spans.py`). A count:
 it repeats exactly from run to run."""
-from portbench import spans
 
 
 def read(trace):
-    table = spans.for_trace(trace)
+    table = trace.spans
     return None if table is None else table.launches_per_step(
         "loss.l2", "optimizer.apply")

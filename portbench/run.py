@@ -8,15 +8,19 @@ BENCHMARK.json names the cell's configuration (portbench/configs/
 its driver, portbench/drivers/<driver>.py); each per-layer metric is read
 by portbench/metrics/<metric>.py, and each cell's limits are
 portbench/limits/<workload>.json. The run makes its inputs and weights
-from the seed on the card, warms up (set-up), measures for --seconds, and
-prints one JSON line last: the cell's end-to-end metrics with --trace 0,
-its per-layer metrics, read from a slice profiled on the card after the
-window, with --trace 1 (a second slice, with the host's ops, names the
-idle gaps of `breakdown`). It then checks the timed path's results against the plain
-reference (portbench/reference) and prints each number compared beside
-its limit. It exits non-zero and prints no result without the cards the
-cell asks for, or when the process holds a module of JAX or of the JAX
-package once the window has closed.
+from the seed on the card, warms up (set-up), measures for --seconds
+(the host side on one CPU thread, set-up's objects frozen out of the
+collector's reach until the check), and prints one JSON line last: the
+cell's end-to-end metrics with --trace 0, its per-layer metrics with
+--trace 1, read from three slices profiled
+after the window: the card's activity alone, then with the host's ops
+(which name the idle gaps of `breakdown`), then with the host's ops and
+the program's spans on (`spans.py`, the span table). It then checks the
+timed path's results against the plain reference (portbench/reference)
+and prints each number compared beside its limit. It exits non-zero and
+prints no result without the cards the cell asks for, or when the
+process holds a module of JAX or of the JAX package once the window has
+closed.
 """
 import time
 
@@ -108,17 +112,18 @@ def profile_slice(cell, window: dict, spec: dict, host: bool):
     """The driver's fixed slice under torch.profiler, as a `common.Trace`:
     the card's activity alone, or with `host` the host's ops too, which
     slow a host-paced slice (their trace, compressed, goes under TMPDIR,
-    else under the checkout's cache)."""
-    import torch
+    else under the checkout's cache). On the CPU (the tests) the host's
+    ops are profiled either way."""
     from torch.profiler import ProfilerActivity, profile
     from portbench import common
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
-                                            if host else [])
-    torch.cuda.synchronize()
+    cuda = cell.dev.type == "cuda"
+    activities = ([ProfilerActivity.CUDA] if cuda else []) + (
+        [ProfilerActivity.CPU] if host or not cuda else [])
+    common.sync(cell.dev)
     with profile(activities=activities) as prof:
         t = time.perf_counter()
         info = cell.trace_slice()
-        torch.cuda.synchronize()
+        common.sync(cell.dev)
         wall = time.perf_counter() - t
     device, host_ops = common.trace_from_profile(prof)
     if host:
@@ -168,6 +173,10 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, dev,
     if prepare is not None:
         prepare(cell)
     cell.setup()
+    # Set-up's objects go out of the collector's reach for the window and
+    # the slices, so that no collection walks them there.
+    gc.collect()
+    gc.freeze()
     common.sync(dev)
     setup_s = time.perf_counter() - T0
     window = cell.window(seconds)
@@ -186,13 +195,16 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, dev,
     breakdown = None
     if trace:
         # The metrics, busy_s and window_s from a slice profiled on the card
-        # alone; the idle gaps' host ops from a second slice.
+        # alone; the idle gaps' host ops from a second slice; the span
+        # metrics' table from a third.
+        from portbench import spans
         traced = profile_slice(cell, window, spec, host=False)
-        metrics = per_layer(spec, traced)
         busy = common.union_us([(s, e) for _, s, e in traced.device]) / 1e6
         device.update(busy_s=busy, window_s=traced.wall_s)
         named = profile_slice(cell, window, spec, host=True)
         breakdown = common.breakdown(traced, named)
+        traced.spans = spans.profile_spans(cell)
+        metrics = per_layer(spec, traced)
         print("portbench: profiled slice, the card alone: {:.4f} s, busy "
               "{:.4f} s; with the host's ops: {:.4f} s, busy {:.4f} s".format(
                   traced.wall_s, busy, named.wall_s,
@@ -202,6 +214,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, dev,
                                    if cuda else 0)
     print("portbench: setup_s {:.3f}, memory_peak_bytes {}".format(
         setup_s, device["memory_peak_bytes"]), file=sys.stderr)
+    gc.unfreeze()
     cell.release()
     gc.collect()
     if cuda:
@@ -246,6 +259,8 @@ def main(argv=None) -> int:
     import torch
     from portbench import common
     dev = common.card(spec["entry"]["chips"])
+    # One CPU thread for the program's host work: the card does the work.
+    torch.set_num_threads(1)
     print("portbench: {} seed {} on {} ({})".format(
         args.workload, args.seed, torch.cuda.get_device_name(0),
         common.power_limit()), file=sys.stderr)

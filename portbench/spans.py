@@ -25,11 +25,10 @@ activity profiled, and `reduce` puts down, from the slice's Chrome trace:
   - each idle gap of the device's union to the innermost span of the
     host's main thread (the roots' thread) at the gap's middle.
 
-Every kept device event is counted once. The harness hands a metric
-reader only the slice profiled on the card alone (run.py's
-`per_layer(spec, trace)`); `for_trace` finds the cell in the harness's
-`run_cell` frame, runs the span slice once for all readers of that trace,
-and returns None where the program has no spans.
+Every kept device event is counted once. A traced run (run.py's
+`run_cell`) profiles this slice third, after the slice on the card alone
+and the one with the host's ops, and hands its table to the metric
+readers as `common.Trace.spans` (None where the program has no spans).
 """
 import bisect
 import dataclasses
@@ -320,28 +319,3 @@ def profile_spans(cell) -> Optional[SpanTable]:
               "idle {:.4f} ms, host self {:.4f} ms a step".format(*row),
               file=sys.stderr)
     return table
-
-
-_TABLES: Dict[int, tuple] = {}
-
-
-def _harness_cell():
-    """The cell of the harness's `run_cell` frame on the caller's stack."""
-    frame = sys._getframe(1)
-    while frame is not None:
-        cell = frame.f_locals.get("cell")
-        if callable(getattr(cell, "trace_slice", None)):
-            return cell
-        frame = frame.f_back
-    return None
-
-
-def for_trace(trace) -> Optional[SpanTable]:
-    """The span table of the run that profiled `trace`, made once."""
-    hit = _TABLES.get(id(trace))
-    if hit is None or hit[0] is not trace:
-        cell = _harness_cell()
-        hit = (trace, None if cell is None else profile_spans(cell))
-        _TABLES.clear()
-        _TABLES[id(trace)] = hit
-    return hit[1]

@@ -14,6 +14,7 @@ from portbench import common, counts, readers
 from portbench.reference import draws as dr
 from portbench.reference import train as ref
 from portbench.reference.model import Arch, Forward, make_weights
+from portbench.tests.variants import B3
 
 ROOT = os.path.dirname(common.ROOT)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -72,18 +73,30 @@ def test_every_cell_finds_its_files_by_name():
         assert m["moves"] in moved
 
 
+@pytest.mark.parametrize("size", [64, 76])
+@pytest.mark.parametrize("backbone", ["b0", "b3"])
 @pytest.mark.parametrize("config", ["efficientlab-b0-meta",
                                     "efficientlab-b0-joint1000"])
-def test_forward_flops_agree_with_the_flop_counter(config):
+def test_forward_flops_agree_with_the_flop_counter(config, backbone, size):
+    """The shipped configurations, and each on EfficientNet-b3, float32, at
+    most 17 channels out; at 76^2 the planes go odd. The program's forward
+    is counted too, so that a count the reference and counts.py shared
+    could not hide a mistake."""
     cfg = common.load_json("configs", config + ".json")
+    model = dict(cfg["model"], compute_dtype="float32",
+                 n_classes=min(cfg["model"]["n_classes"], 16),
+                 **(B3 if backbone == "b3" else {}))
+    cfg = dict(cfg, model=model)
     arch = Arch.from_config(cfg)
-    arch = Arch(arch.backbone, arch.max_block, arch.decoder_dim, arch.rsd,
-                min(arch.out_channels, 17), arch.final_dropout, None)
-    w = make_weights(arch, torch.Generator().manual_seed(0), "cpu")
-    images = torch.rand(2, 64, 64, 3) * 255
+    images = torch.rand(2, size, size, 3) * 255
     with FlopCounterMode(display=False) as fc, torch.no_grad():
-        Forward(arch, w, False)(images)
-    assert fc.get_total_flops() == 2 * counts.forward_flops(arch, 64, 64)
+        Forward(arch, make_weights(arch, torch.Generator().manual_seed(0),
+                                   "cpu"), False)(images)
+    with FlopCounterMode(display=False) as fp, torch.no_grad():
+        common.program_model(cfg, "cpu")(images, train=False)
+    want = 2 * counts.forward_flops(arch, size, size)
+    assert fc.get_total_flops() == want
+    assert fp.get_total_flops() == want
 
 
 def test_meta_flops_match_the_jax_cost_analysis_within_a_few_percent():

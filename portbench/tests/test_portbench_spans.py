@@ -174,39 +174,68 @@ def test_backward_ops_go_to_their_forward_ops_span(tmp_path):
     assert host.attribute(root) == "joint.step"
 
 
-def test_for_trace_returns_none_without_a_harness_cell():
-    assert spans.for_trace(object()) is None
-
-
 NEW = {"head_device_ms.joint", "model_device_ms.joint",
        "update_device_ms.joint", "update_launches_per_step.joint",
        "step_idle_pct.joint"}
 
 
-def test_the_readers_run_one_span_slice_from_the_harness_frame(monkeypatch):
-    """`run.per_layer`, called where the cell is a local (as in
-    `run.run_cell`), reports the five metrics from one span slice; with a
-    program that has no spans (the parent's) it leaves them out."""
-    spec = run.cell_spec("joint-train.b0-1000")
-    spec = dict(spec, per_layer=[m for m in spec["per_layer"]
-                                 if m["name"] in NEW])
-    cell = run.make_cell(spec, 2 ** 31 + 5, torch.device("cpu"), {
-        "image_size": 32, "model": {"n_classes": 6},
-        "joint": {"batch_size": 2},
-        "data": {"classes": 6, "train_classes": 4}})
-    cell.traffic = dict(cell.traffic, trace_steps=2, check_steps=1)
-    cell.setup()
-    slices = []
-    monkeypatch.setattr(cell, "trace_slice", lambda: slices.append(
-        type(cell).trace_slice(cell)))
+def _small_run(monkeypatch, tmp_path, trace):
+    """A joint run at 32^2 on the CPU through `run.run_cell`: its result,
+    and how many slices it profiled and how many of them with spans."""
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    calls = {"slices": 0, "spans": 0}
+    profile_spans = spans.profile_spans
 
-    def trace():
-        return common.Trace(device=[], host=[], wall_s=1.0, inner_steps=2,
-                            augment_batch=2, image_size=32)
+    def counted(cell):
+        calls["spans"] += 1
+        return profile_spans(cell)
 
-    got = run.per_layer(spec, trace())
-    assert set(got) == NEW and len(slices) == 1
-    assert got["update_launches_per_step.joint"]["value"] == 0   # no card
+    monkeypatch.setattr(spans, "profile_spans", counted)
+
+    def prepare(cell):
+        cell.traffic = dict(cell.traffic, trace_steps=2)
+        whole = cell.trace_slice
+
+        def trace_slice():
+            calls["slices"] += 1
+            return whole()
+
+        cell.trace_slice = trace_slice
+
+    result = run.run_cell(
+        run.cell_spec("joint-train.b0-1000"), 2 ** 31 + 5, 0.2, trace,
+        torch.device("cpu"), {"image_size": 32, "model": {"n_classes": 6},
+                              "joint": {"batch_size": 2},
+                              "data": {"classes": 6, "train_classes": 4}},
+        prepare)
+    return result, calls
+
+
+def test_an_untraced_run_has_no_span_table(monkeypatch, tmp_path):
+    """Without --trace 1 no slice is profiled; a reader handed a trace
+    without a span table finds nothing to read."""
+    result, calls = _small_run(monkeypatch, tmp_path, False)
+    assert calls == {"slices": 0, "spans": 0}
+    assert set(result["metrics"]) == {"joint_images_per_s", "setup_s"}
+    trace = common.Trace(device=[], host=[], wall_s=1.0, inner_steps=2,
+                         augment_batch=2, image_size=32)
+    for name in NEW:
+        reader = run.load_module(os.path.join(
+            common.ROOT, "metrics", name + ".py"), "reader")
+        assert reader.read(trace) is None
+
+
+def test_a_traced_run_profiles_one_span_slice_for_the_readers(monkeypatch,
+                                                              tmp_path):
+    """A traced run profiles three slices, the third with spans, and the
+    five span metrics read its table; with a program that has no spans
+    the third slice is not taken and they are left out."""
+    result, calls = _small_run(monkeypatch, tmp_path, True)
+    assert calls == {"slices": 3, "spans": 1}
+    assert NEW <= set(result["metrics"])
+    assert result["metrics"]["update_launches_per_step.joint"][
+        "value"] == 0   # no card
     monkeypatch.delattr(profiling, "spans")
-    assert run.per_layer(spec, trace()) == {}
-    assert len(slices) == 1
+    result, calls = _small_run(monkeypatch, tmp_path, True)
+    assert calls == {"slices": 2, "spans": 1}
+    assert not NEW & set(result["metrics"])

@@ -46,6 +46,19 @@ its phases, one line each (or a few):
      each alone, beside the bound (bytes at 3.35 TB/s, exponentials at
      H100_EXP2_PER_S), the plain version and `library_ms`, the
      F.interpolate + F.cross_entropy composition the kernels replaced.
+  4c. kernel[batch_norm_act]: the model's batch norm and swish kernels
+     (two launches each way) against float64 and against the composition
+     they replaced (the layer's own, under autograd) at b3's largest and
+     deepest batch-norm inputs, [64, 144, 150, 150] and [64, 816, 19, 19],
+     and b0's largest, [64, 96, 112, 112], in NCHW and channels-last, with
+     the swish after, before and beside none: y, dx, d_scale, d_bias and
+     the running stats within BN_Y_BAR / BN_GRAD_BAR of float64, two runs
+     bit-identical, exactly 4 launches a forward and backward. Then every
+     batch norm's input of the b3 and b0 joint cells' training forward
+     (shape, layout, swish) is timed, forward and backward, the kernels
+     with a cold L2 and the composition eager, and summed over the layers
+     as a step runs them, beside the bound (8 float32 passes over each
+     input at 3.35 TB/s).
   A kernel's time is the device time of a launch, from a CUDA graph of
   many launches: `cold_ms` with a cold L2 (the launches rotate through
   copies of the input, at least 2 x 50 MB apart, and keep every output),
@@ -119,7 +132,9 @@ its phases, one line each (or a few):
      the test evaluation (one a (task, sample), each read back and
      different from the meta-learned state) and the serving artifact
      (loaded with `torch.export.load`, the module's eval probabilities
-     within 1e-5 at batch 1 and 5); then a run under `--profile_dir` on 2
+     within 1e-5 at batch 1 and 5 on the batch norms' composition, the
+     route a trace takes, and within SPATIAL_PROB_BAR of the module's
+     kernels); then a run under `--profile_dir` on 2
      tasks (1 meta-iter of 1 task, 3 inner and 3 eval steps: 14
      launches) whose gzipped Chrome trace must parse and hold one
      `full_pass` kernel event a launch and the `meta_step`, `eval_train`
@@ -216,6 +231,12 @@ its phases, one line each (or a few):
      entries [0, mean] then [iter, mean, diff, ci]; a baseline mean IoU
      below CURVE_BASELINE_BAR; the checkpoint's params finite and changed.
      Prints the seconds a meta-iteration and an evaluation point take.
+Every float32 path on the card runs the model's batch norms through
+`batch_norm_act` where they take the batch's moments: each training step
+4 launches a layer, an eval-mode forward 2 a layer of the skip decoder's
+(which normalize by the batch in every mode), nothing where the running
+moments are taken, in bf16, under sync-BN or a spatial context. Every
+phase's launch counts include them, derived the same way.
 Then the `kernels` JSON line (each kernel's launches on the path it
 carries, and on every path; `ms`, `cold_ms` and `bound_share` at the main
 path's size, every size's beside them), the card's name and power limit
@@ -372,14 +393,17 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-KERNELS = ("full_pass", "cheap_pass", "fused_light_augment", "resized_ce")
+KERNELS = ("full_pass", "cheap_pass", "fused_light_augment", "resized_ce",
+           "batch_norm_act")
 
 
 def _wrapper(name):
     """The kernel wrapper that counts the launches of `name`."""
     from mliis_tpu_torch.ops import augment_kernels as ak
+    from mliis_tpu_torch.ops import batch_norm_act as bn_act
     from mliis_tpu_torch.ops import resized_ce as rce
-    return getattr(rce if name == "resized_ce" else ak, name)
+    module = {"resized_ce": rce, "batch_norm_act": bn_act}.get(name, ak)
+    return getattr(module, name)
 
 
 def reset_launches():
@@ -1100,6 +1124,261 @@ def phase_head_kernel(dev):
                  "replaces": None, "sizes": sizes, **usage}, **entry)
 
 
+# The `bn_kernel` phase's checks: b3's largest batch-norm input (the
+# joint cell's first block at 150^2), b3's deepest (block 17 at 19^2) and
+# b0's largest, each in both layouts and with the swish after, before and
+# beside none.
+BN_CHECK_SHAPES = ((64, 144, 150, 150), (64, 816, 19, 19),
+                   (64, 96, 112, 112))
+BN_SWISHES = ("after", "before", None)
+BN_Y_BAR, BN_GRAD_BAR = 1e-6, 2e-6  # shares of the float64 value's largest
+# The joint cells' models, whose every batch-norm input the phase times:
+# (tag, backbone, image size), batch 64.
+BN_MODELS = (("b3", "efficientnet-b3", 300), ("b0", "efficientnet-b0", 224))
+
+
+def bn_layers(model, always_batch_stats=False) -> int:
+    """The model's batch norms (those that normalize by the batch's
+    moments in every mode, the skip decoder's, with
+    `always_batch_stats`)."""
+    from mliis_tpu_torch.models.layers import FusedBatchNorm
+    return sum(isinstance(m, FusedBatchNorm)
+               and (m.always_batch_stats or not always_batch_stats)
+               for m in model.modules())
+
+
+def bn_launches(model, steps, eval_forwards=0):
+    """`batch_norm_act` launches of a float32 run on the card: each
+    training step runs every batch norm forward and backward (4 launches a
+    layer, whatever the tasks on a task axis); each eval-mode forward runs
+    those that normalize by the batch in every mode (2 a layer); the
+    predictions of an evaluation take the running moments."""
+    return (4 * bn_layers(model) * steps
+            + 2 * bn_layers(model, True) * eval_forwards)
+
+
+def _tail_steps(args, chained=True):
+    """FOMAML*'s raw tail steps of a training run of the CLI, which launch
+    no `full_pass`: one a meta-iteration for each task chained, or each
+    task group on a task axis."""
+    groups = (args.meta_batch if chained else
+              -(-args.meta_batch // args.task_group_size)
+              if args.task_group_size else 1)
+    return args.meta_iters * groups
+
+
+def _predictions(args, n_train, n_test):
+    """The evaluated tasks' prediction forwards of a training run of the
+    CLI, one a task chained: the interval evaluations' and the final."""
+    intervals = len(range(0, args.meta_iters, args.eval_interval))
+    return (intervals * (min(100, n_train) + min(100, n_test))
+            + args.eval_samples * (1 + n_test))
+
+
+def _bn_library(bn, x, g, swish):
+    """(y, dx, d_scale, d_bias) of the composition the kernels replaced,
+    the layer's own, under autograd."""
+    import torch
+    import torch.nn.functional as F
+    xr = x.detach().requires_grad_(True)
+    y = bn._composition(F.silu(xr) if swish == "before" else xr, True)
+    if swish == "after":
+        y = F.silu(y)
+    return (y.detach(),) + torch.autograd.grad(y, (xr, bn.scale, bn.bias), g)
+
+
+def _bn_check(dev, shape, channels_last, swish):
+    """The kernels (through `batch_norm_act`) against float64 and the
+    composition against float64, at one shape; the kernels twice, bit for
+    bit. Returns the kernels' worst gap and the composition's."""
+    import torch
+    from mliis_tpu_torch.models.layers import FusedBatchNorm
+    from mliis_tpu_torch.ops import batch_norm_act as bn_act
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = (1.5 * torch.randn(shape, generator=gen, device=dev) + 0.7
+         ).contiguous(memory_format=fmt)
+    g = torch.randn(shape, generator=gen, device=dev).contiguous(
+        memory_format=fmt)
+    c = shape[1]
+    bn = FusedBatchNorm(c).to(dev)
+    with torch.no_grad():
+        bn.scale.copy_(1.0 + 0.3 * torch.randn(c, generator=gen, device=dev))
+        bn.bias.copy_(0.2 * torch.randn(c, generator=gen, device=dev))
+        bn.var.fill_(1.5)
+    start = (bn.mean.clone(), bn.var.clone())
+    runs = []
+    for _ in range(2):
+        bn.mean.copy_(start[0])
+        bn.var.copy_(start[1])
+        bn_act.batch_norm_act.launches = 0
+        xr = x.clone().requires_grad_(True)
+        y = bn(xr, True, swish=swish)
+        grads = torch.autograd.grad(y, (xr, bn.scale, bn.bias), g)
+        launches = bn_act.batch_norm_act.launches
+        runs.append((y.detach(),) + grads + (bn.mean.clone(),
+                                             bn.var.clone()))
+        del xr, y, grads
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    in_format = all(t.is_contiguous(memory_format=fmt) for t in runs[0][:2])
+    y64, stats = bn_act.batch_norm_act_forward_reference(
+        x.double(), bn.scale.detach().double(), bn.bias.detach().double(),
+        bn.epsilon, swish)
+    truth = (y64,) + bn_act.batch_norm_act_backward_reference(
+        x.double(), g.double(), stats, swish) + (
+        0.99 * start[0].double() + 0.01 * stats[0],
+        0.99 * start[1].double() + 0.01 * stats[1])
+    del y64, stats
+    bn.mean.copy_(start[0])
+    bn.var.copy_(start[1])
+    library = _bn_library(bn, x, g, swish) + (bn.mean, bn.var)
+
+    def gaps(got):
+        return [float((a.double() - b).abs().max() / b.abs().max())
+                for a, b in zip(got, truth)]
+    k_gaps, l_gaps = gaps(runs[0]), gaps(library)
+    bars = (BN_Y_BAR,) + (BN_GRAD_BAR,) * 3 + (BN_Y_BAR,) * 2
+    ok = (same and in_format and launches == 4
+          and all(a <= b for a, b in zip(k_gaps, bars)))
+    log("bn_kernel[check] {} {} swish {}: gaps to float64 (y, dx, d_scale, "
+        "d_bias, mean, var) kernels {} | composition {} | bars {} / {} | "
+        "bit-identical twice {} | in x's layout {} | launches {} (expect "
+        "4)".format(list(shape), "channels-last" if channels_last else
+                    "NCHW", swish, ["{:.3g}".format(v) for v in k_gaps],
+                    ["{:.3g}".format(v) for v in l_gaps], BN_Y_BAR,
+                    BN_GRAD_BAR, same, in_format, launches))
+    if not ok:
+        raise AssertionError("batch_norm_act disagrees at {} {} swish "
+                             "{}".format(shape, channels_last, swish))
+    return max(k_gaps), max(l_gaps)
+
+
+@contextlib.contextmanager
+def _composition_route():
+    """Every batch norm on the composition of PyTorch ops for the block,
+    the route a traced forward takes."""
+    from mliis_tpu_torch.models.layers import FusedBatchNorm
+    route = FusedBatchNorm._kernel_route
+    FusedBatchNorm._kernel_route = lambda self, x, train: False
+    try:
+        yield
+    finally:
+        FusedBatchNorm._kernel_route = route
+
+
+def bn_inputs(dev, backbone, size, batch=64):
+    """[(shape, channels-last, swish)] of every batch norm of the joint
+    cell's model (EfficientLab on `backbone`, rsd (2,), 1001 channels) in a
+    training forward at `batch` x size^2, in the order they run."""
+    import torch
+    from mliis_tpu_torch.models.efficientlab import EfficientLab
+    from mliis_tpu_torch.models.layers import FusedBatchNorm
+    from mliis_tpu_torch.ops import batch_norm_act as bn_act
+    model = EfficientLab(n_classes=1000, feature_extractor_name=backbone,
+                         rsd=(2,), final_layer_dropout_rate=0.0).to(dev)
+    seen = []
+
+    def hook(module, args, kwargs):
+        x = args[0]
+        seen.append((tuple(x.shape), bn_act._channels_last(x),
+                     kwargs.get("swish")))
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+               for m in model.modules() if isinstance(m, FusedBatchNorm)]
+    images = 255.0 * torch.rand(batch, size, size, 3, device=dev)
+    with torch.no_grad():
+        model(images, train=True, upsample=False)
+    for h in handles:
+        h.remove()
+    del model, images
+    torch.cuda.empty_cache()
+    return seen
+
+
+def _bn_times(dev, shape, channels_last, swish):
+    """(kernels' cold ms, composition's ms) of a forward and backward at
+    one batch-norm input."""
+    import torch
+    from mliis_tpu_torch.models.layers import FusedBatchNorm
+    from mliis_tpu_torch.ops import batch_norm_act as bn_act
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = (torch.randn(shape, device=dev) + 0.5).contiguous(memory_format=fmt)
+    g = torch.randn(shape, device=dev).contiguous(memory_format=fmt)
+    bn = FusedBatchNorm(shape[1]).to(dev)
+    scale, bias = bn.scale.detach(), bn.bias.detach()
+
+    def both(x, g):
+        _, stats = bn_act._forward_kernel(x, scale, bias, bn.mean, bn.var,
+                                          0.99, 1e-3, swish)
+        return bn_act._backward_kernel(x, g, stats, swish, True)
+
+    values = x.numel()
+    reps = max(3, min(20, int(4e9 / (4 * values))))
+    cold, _ = cold_graph_ms(both, (x, g), 8 * 4 * values, reps)
+    library = cuda_ms(lambda: _bn_library(bn, x, g, swish), 3)
+    del x, g
+    torch.cuda.empty_cache()
+    return cold, library
+
+
+def phase_bn_kernel(dev):
+    """`batch_norm_act` against float64 and the composition it replaced at
+    BN_CHECK_SHAPES, both layouts, every swish (`_bn_check`); then, for
+    each of BN_MODELS, every batch norm's input of a training forward (its
+    shape, layout and swish) timed, forward and backward: the kernels with
+    a cold L2 and the composition eager, summed over the model's layers as
+    a step runs them, beside the bound, 8 float32 passes over each input
+    (x read twice and y written forward; x and the gradient read twice and
+    dx written backward) at 3.35 TB/s."""
+    import torch
+    usage = BUILD_USAGE.get("batch_norm_act", {})
+    worst_k, worst_l = 0.0, 0.0
+    for shape in BN_CHECK_SHAPES:
+        for channels_last in (False, True):
+            for swish in BN_SWISHES:
+                k, lib = _bn_check(dev, shape, channels_last, swish)
+                worst_k, worst_l = max(worst_k, k), max(worst_l, lib)
+                torch.cuda.empty_cache()
+    steps = {}
+    for tag, backbone, size in BN_MODELS:
+        inputs = bn_inputs(dev, backbone, size)
+        timed = {}
+        for key in inputs:
+            if key not in timed:
+                timed[key] = _bn_times(dev, *key)
+        kernel_ms = sum(timed[k][0] for k in inputs)
+        library_ms = sum(timed[k][1] for k in inputs)
+        values = sum(math.prod(k[0]) for k in inputs)
+        bound_ms = 1e3 * 8 * 4 * values / H100_BYTES_PER_S
+        layouts = sum(k[1] for k in inputs)
+        for key, (cold, lib) in sorted(timed.items(), key=lambda kv:
+                                       -math.prod(kv[0][0])):
+            n = inputs.count(key)
+            one = 1e3 * 8 * 4 * math.prod(key[0]) / H100_BYTES_PER_S
+            log("bn_kernel[{}] {} {} swish {} x{}: cold_ms {:.4f} ({:.1%} of "
+                "the bound {:.4f}) | composition {:.4f} ms".format(
+                    tag, list(key[0]), "channels-last" if key[1] else "NCHW",
+                    key[2], n, cold, one / cold, one, lib))
+        log("bn_kernel[{}]: {} batch norms ({} channels-last, {} NCHW), "
+            "{:.4g} GB of inputs a step | kernels {:.3f} ms a step ({:.1%} "
+            "of the bound {:.3f} ms) | composition {:.3f} ms a step | {} "
+            "registers, {} B spilled".format(
+                tag, len(inputs), layouts, len(inputs) - layouts,
+                4 * values / 1e9, kernel_ms, bound_ms / kernel_ms, bound_ms,
+                library_ms, usage.get("registers"), usage.get("spill_bytes")))
+        steps[tag] = dict(layers=len(inputs), channels_last=layouts,
+                          kernel_ms=kernel_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_share=bound_ms / kernel_ms)
+    b3 = steps["b3"]
+    return dict({"name": "batch_norm_act", "route": "cuda",
+                 "source": "mliis_tpu_torch/csrc/batch_norm_act.cu",
+                 "replaces": None, "steps": steps, **usage},
+                ms=b3["kernel_ms"], cold_ms=b3["kernel_ms"],
+                plain_ms=b3["library_ms"], bound_ms=b3["bound_ms"],
+                bound_share=b3["bound_share"], max_abs_err=worst_k,
+                library_max_err=worst_l)
+
+
 def _loss_and_grads(dev, init_state, images, masks):
     """Loss and gradients of one train-mode forward of EfficientLab-b0 in
     float32, without drop-connect or dropout."""
@@ -1184,7 +1463,8 @@ def phase_agree_joint(dev):
                                   for k, v in model.named_parameters()}))
     (loss_card, upd_card), (loss_cpu, upd_cpu) = out
     launches = read_launches()
-    expect = expected(fused_light_augment=1, resized_ce=2)
+    expect = expected(fused_light_augment=1, resized_ce=2,
+                      batch_norm_act=4 * bn_layers(init))
     norm = float(torch.sqrt(sum(u.square().sum() for u in upd_cpu.values())))
     worst = max(float((upd_card[k] - upd_cpu[k]).norm())
                 for k in upd_cpu) / norm
@@ -1401,8 +1681,13 @@ def phase_joint(dev):
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = read_launches()
+        # The validation batches normalize by the running moments: no
+        # batch_norm_act launch.
+        init = EfficientLab(n_classes=1000, rsd=(2,),
+                            final_layer_dropout_rate=0.0)
         expect = expected(fused_light_augment=JOINT_STEPS,
-                          resized_ce=2 * JOINT_STEPS)
+                          resized_ce=2 * JOINT_STEPS,
+                          batch_norm_act=4 * bn_layers(init) * JOINT_STEPS)
         peak = torch.cuda.max_memory_allocated(dev)
         out = "".join(tee.parts)
         store_s = float(re.search(r"built in ([0-9.]+) s", out).group(1))
@@ -1411,8 +1696,6 @@ def phase_joint(dev):
             records = [json.loads(line) for line in f]
         step_s = [r["value"] for r in records if r["tag"] == "step_seconds"]
         last6 = 6 / sum(step_s[-6:])
-        init = EfficientLab(n_classes=1000, rsd=(2,),
-                            final_layer_dropout_rate=0.0)
         init.reset_parameters(torch.Generator().manual_seed(0))
         start = dict(init.named_parameters())
         finite = all(bool(v.isfinite().all()) for v in state.params.values())
@@ -1536,9 +1819,13 @@ def phase_train(dev):
     args = args_lib.argument_parser().parse_args(argv)
     n_test = max(args.synthetic_tasks // 4, 1)
     counts, failed = {}, []
+    init = EfficientLab(**args_lib.model_kwargs(args))
 
-    def check(run, launches, full_pass, ok, text):
-        expect = expected(full_pass=full_pass)
+    def check(run, launches, full_pass, ok, text, tails=0):
+        # Every step a full_pass launch augments, and the raw tails, run
+        # the batch norms forward and backward.
+        expect = expected(full_pass=full_pass,
+                          batch_norm_act=bn_launches(init, full_pass + tails))
         counts[run] = launches
         log("{}: {} | launches {} (expect {})".format(run, text, launches,
                                                       expect))
@@ -1552,7 +1839,6 @@ def phase_train(dev):
         with open(os.path.join(ckpt_dir, "phase_timings.jsonl")) as f:
             timings = json.loads(f.readline())
         TRAIN.update(timings=timings, wall=wall, peak=peak)
-        init = EfficientLab(**args_lib.model_kwargs(args))
         init.reset_parameters(torch.Generator().manual_seed(args.seed))
         start = dict(init.named_parameters())
         finite = all(bool(v.isfinite().all()) for v in state.params.values())
@@ -1587,7 +1873,7 @@ def phase_train(dev):
                   + timings["eval_test"]["total_s"],
                   grep[0] if grep else "no grep line", finite, moved,
                   meta.get("step"), readable, results, eta, peak / 1e9,
-                  expect, terms))
+                  expect, terms), tails=_tail_steps(args))
 
         restored, out, launches, wall, peak = _run_cli(
             argv + ["--pretrained"], dev)
@@ -1738,8 +2024,9 @@ def phase_batched(dev):
     t_phase = time.time()
     counts, failed = {}, []
 
-    def check(path, launches, full_pass, ok, text, cheap=0):
-        expect = expected(full_pass=full_pass, cheap_pass=cheap)
+    def check(path, launches, full_pass, ok, text, cheap=0, bn=0):
+        expect = expected(full_pass=full_pass, cheap_pass=cheap,
+                          batch_norm_act=bn)
         counts[path] = launches
         log("batched[{}]: {} | launches {} (expect {})".format(
             path, text, launches, expect))
@@ -1797,16 +2084,19 @@ def phase_batched(dev):
         counts["batched_f32_" + name] = read_launches()
     gap = _state_gap(outs["batched"], outs["chained"], f32_start)
     per_step = BATCHED_F32_STEPS - 1
+    chained_expect = expected(full_pass=5 * per_step, batch_norm_act=5
+                              * bn_launches(f32, BATCHED_F32_STEPS))
     check("batched_f32", counts["batched_f32_batched"], per_step,
-          gap[0] <= BATCHED_F32_BAR and counts["batched_f32_chained"][
-              "full_pass"] == 5 * per_step,
+          gap[0] <= BATCHED_F32_BAR
+          and counts["batched_f32_chained"] == chained_expect,
           "float32 FOMAML* meta-step of {} inner steps, batched against "
           "chained from the same state and draws | seconds {:.3f} (chained "
           "{:.3f}, {} launches) | largest gap {:.3g} (bar {}; {:.3g} of the "
           "largest change)".format(BATCHED_F32_STEPS, walls["batched"],
                                    walls["chained"],
                                    counts["batched_f32_chained"]["full_pass"],
-                                   gap[0], BATCHED_F32_BAR, gap[1]))
+                                   gap[0], BATCHED_F32_BAR, gap[1]),
+          bn=bn_launches(f32, BATCHED_F32_STEPS))
     del f32, outs
 
     def evaluate(evaluator, state, route):
@@ -1876,10 +2166,11 @@ def phase_batched(dev):
             steps = chunks * BATCHED_F32_EVAL_STEPS
             counts["batched_eval_f32_chained_" + route] = runs[True][3]
             gap = runs[False][0] - runs[True][0]
-            ok = runs[True][3]["full_pass" if route == "fused"
-                               else "cheap_pass"] == (
-                EVAL_TASKS * BATCHED_F32_EVAL_STEPS
-                * (1 if route == "fused" else 2))
+            chained_steps = EVAL_TASKS * BATCHED_F32_EVAL_STEPS
+            ok = runs[True][3] == expected(
+                full_pass=chained_steps if route == "fused" else 0,
+                cheap_pass=0 if route == "fused" else 2 * chained_steps,
+                batch_norm_act=bn_launches(f32, chained_steps))
             check("batched_eval_f32_" + route, runs[False][3],
                   steps if route == "fused" else 0,
                   ok and abs(gap) <= BATCHED_IOU_BAR,
@@ -1892,7 +2183,8 @@ def phase_batched(dev):
                       route, runs[False][0], runs[True][0], gap,
                       BATCHED_IOU_BAR, runs[False][2], runs[True][2],
                       runs[True][3], runs[False][1], runs[True][1]),
-                  cheap=0 if route == "fused" else 2 * steps)
+                  cheap=0 if route == "fused" else 2 * steps,
+                  bn=bn_launches(f32, steps))
         del f32, evaluators
     finally:
         taug.PALLAS_FUSED_SINGLE_LAUNCH = True
@@ -1916,6 +2208,7 @@ def phase_batched(dev):
         finite = all(bool(v.isfinite().all()) for v in state.params.values())
         iou = _mean_iou(out)
         chained = TRAIN["timings"]
+        model = EfficientLab(**args_lib.model_kwargs(args))
         check("batched_cli", launches, expect,
               finite and math.isfinite(iou),
               "run_metasegnet with no strategy flag (task axis; evaluation "
@@ -1931,7 +2224,8 @@ def phase_batched(dev):
                   + timings["eval_test"]["total_s"],
                   chained["eval_train"]["total_s"]
                   + chained["eval_test"]["total_s"],
-                  iou, peak / 1e9, TRAIN["peak"] / 1e9, expect, terms))
+                  iou, peak / 1e9, TRAIN["peak"] / 1e9, expect, terms),
+              bn=bn_launches(model, expect + _tail_steps(args, False)))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log("batched: the phase's wall {:.2f} s".format(time.time() - t_phase))
@@ -2134,7 +2428,10 @@ def phase_traces(dev):
     counts, failed = {}, []
 
     def check(path, launches, full_pass, ok, text):
-        expect = expected(full_pass=full_pass)
+        # Each augmented step a forward and backward of the batch norms;
+        # the traces and evaluations predict with the running moments.
+        expect = expected(full_pass=full_pass,
+                          batch_norm_act=bn_launches(model, full_pass))
         counts[path] = launches
         log("traces[{}]: {} | launches {} (expect {})".format(
             path, text, launches, expect))
@@ -2145,6 +2442,7 @@ def phase_traces(dev):
         ckpt_dir = os.path.join(workdir, "ckpt")
         args = args_lib.argument_parser().parse_args(
             _traces_argv(ckpt_dir, False))
+        model = EfficientLab(**args_lib.model_kwargs(args))
         _save_pretrained_checkpoint(ckpt_dir, args)
         runs = {}
         for name, chained in (("batched", False), ("chained", True)):
@@ -2216,10 +2514,12 @@ def phase_traces(dev):
             traces[chain] = np.concatenate([r["out"] for r in recorded])
         gap = float(np.abs(traces[False] - traces[True]).max())
         chunks = _chunk_count(EVAL_TASKS, TRACES_CHUNK)
+        chained_steps = EVAL_TASKS * TRACES_F32_STEPS
         check("traces_f32", counts["traces_f32_batched"],
               chunks * TRACES_F32_STEPS,
-              gap <= TRACES_BAR and counts["traces_f32_chained"][
-                  "full_pass"] == EVAL_TASKS * TRACES_F32_STEPS,
+              gap <= TRACES_BAR and counts["traces_f32_chained"] == expected(
+                  full_pass=chained_steps,
+                  batch_norm_act=bn_launches(f32, chained_steps)),
               "EarlyStoppingEvaluator float32, {} tasks x {} steps, chunks "
               "of {} against chained (deterministic; ops without a "
               "deterministic form: {}) | largest trace gap {:.5f} (bar {}) "
@@ -2345,8 +2645,10 @@ def phase_decoders(dev):
     hold the decoders' keys and read back; the skip decoder's running
     stats must not move in an eval-mode forward; the artifact must give
     the module's probabilities at batch 1 and 5; the trace must hold a
-    `full_pass` kernel event per launch and the phases' ranges. Returns
-    {run: launches}."""
+    `full_pass` kernel event per launch and the phases' ranges (the
+    artifact, a trace, against the module on the batch norms' composition
+    within 1e-5, and against the module's kernels within
+    SPATIAL_PROB_BAR). Returns {run: launches}."""
     import glob
     import gzip
     import shutil
@@ -2362,11 +2664,15 @@ def phase_decoders(dev):
     ckpt_dir = os.path.join(workdir, "ckpt")
     argv = TRAIN_ARGV + DECODER_ARGV + ["--checkpoint", ckpt_dir]
     args = args_lib.argument_parser().parse_args(argv)
+    # The skip decoder's batch norms normalize by the batch in every mode:
+    # each prediction forward launches them too.
+    decoders = EfficientLab(**args_lib.model_kwargs(args))
     n_test = max(args.synthetic_tasks // 4, 1)
     counts, failed = {}, []
 
-    def check(run, launches, full_pass, ok, text):
-        expect = expected(full_pass=full_pass)
+    def check(run, launches, full_pass, ok, text, steps, predictions):
+        expect = expected(full_pass=full_pass, batch_norm_act=bn_launches(
+            decoders, steps, predictions))
         counts[run] = launches
         log("{}: {} | launches {} (expect {})".format(run, text, launches,
                                                       expect))
@@ -2426,7 +2732,8 @@ def phase_decoders(dev):
                   timings["eval_train"]["total_s"]
                   + timings["eval_test"]["total_s"], args.synthetic_tasks,
                   finite, moved, keys, readable, still, peak / 1e9, expect,
-                  terms))
+                  terms), expect + _tail_steps(args),
+              _predictions(args, args.synthetic_tasks - n_test, n_test))
 
         ft_dir = os.path.join(workdir, "fine_tuned")
         artifact = os.path.join(workdir, "serving.pt2")
@@ -2447,26 +2754,39 @@ def phase_decoders(dev):
             fine_tuned &= (meta.get("step") == args.eval_iters and any(
                 not torch.equal(tuned.params[k], v)
                 for k, v in state.params.items()))
+        # The artifact is a trace, which takes the batch norms'
+        # composition: it is held to the module's forward on that route;
+        # the module's own forward on the card runs the skip decoder's
+        # norms through `batch_norm_act`, whose exact moments move the
+        # probabilities as a reordered sum does (SPATIAL_PROB_BAR).
         program = torch.export.load(artifact).module()
-        served = {}
+        served, kernels = {}, {}
         for b in (1, 5):
             images = torch.rand(
                 (b, args.image_size, args.image_size, 3),
                 generator=torch.Generator(device=dev).manual_seed(b),
                 device=dev) * 255
             with torch.no_grad():
-                served[b] = float((program(images) - model(
+                probs = program(images)
+                with _composition_route():
+                    served[b] = float((probs - model(
+                        images, train=False)[1]).abs().max())
+                kernels[b] = float((probs - model(
                     images, train=False)[1]).abs().max())
         check("decoders[eval-only]", launches, expect,
-              fine_tuned and max(served.values()) <= 1e-5,
+              fine_tuned and max(served.values()) <= 1e-5
+              and max(kernels.values()) <= SPATIAL_PROB_BAR,
               "--pretrained, fine-tuned checkpoints and the serving "
               "artifact | wall {:.2f} s | {} fine-tuned checkpoints for "
               "tasks {} read back and differ from the meta-learned state "
-              "{} | artifact {:.1f} MB, max |probs - module's| at batch 1 "
-              "{:.3g}, at batch 5 {:.3g} (1e-5) | peak memory {:.2f} "
-              "GB".format(wall, len(found), sorted(tasks), fine_tuned,
-                          os.path.getsize(artifact) / 1e6, served[1],
-                          served[5], peak / 1e9))
+              "{} | artifact {:.1f} MB, max |probs - module's| (the "
+              "composition's route) at batch 1 {:.3g}, at batch 5 {:.3g} "
+              "(1e-5); against the module's kernels {:.3g}, {:.3g} ({}) | "
+              "peak memory {:.2f} GB".format(
+                  wall, len(found), sorted(tasks), fine_tuned,
+                  os.path.getsize(artifact) / 1e6, served[1], served[5],
+                  kernels[1], kernels[5], SPATIAL_PROB_BAR, peak / 1e9),
+              expect, args.eval_samples * (1 + n_test))
 
         prof_dir = os.path.join(workdir, "profile")
         pargv = argv + PROFILE_ARGV + [
@@ -2494,7 +2814,9 @@ def phase_decoders(dev):
               "{}".format(
                   wall, os.path.getsize(trace) / 1e6, len(raw) / 1e6,
                   len(events), kernels,
-                  sorted(ranges & phases), peak / 1e9, expect, terms))
+                  sorted(ranges & phases), peak / 1e9, expect, terms),
+              expect + _tail_steps(pargs),
+              _predictions(pargs, pargs.synthetic_tasks - p_test, p_test))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log("decoders: the phase's wall {:.2f} s".format(time.time() - t0))
@@ -2780,8 +3102,9 @@ def phase_mesh(dev):
         n_test = max(args.synthetic_tasks // 4, 1)
         cli_expect, terms = _expected_train_launches(
             args, args.synthetic_tasks - n_test, n_test)
-        cli_expect = expected(full_pass=cli_expect)
         init = EfficientLab(**args_lib.model_kwargs(args))
+        cli_expect = expected(full_pass=cli_expect, batch_norm_act=bn_launches(
+            init, cli_expect + _tail_steps(args)))
         init.reset_parameters(torch.Generator().manual_seed(args.seed))
         cli_start = _cpu_state(init_model_state(init,
                                                 OptimizerConfig("sgd")))
@@ -2803,8 +3126,12 @@ def phase_mesh(dev):
                   backend_w1.group(1) if backend_w1 else None, wall,
                   t_w1["meta_step"]["mean_s"], iou_w1, peak / 1e9, terms))
 
-        step_expect = expected(full_pass=5 * (MESH_STEP_ITERS - 1))
         model, (imgs, msks, mcounts), cfg, state = _mesh_meta_setup(dev)
+        # Chained: every task's steps, its raw tail too, run the batch
+        # norms forward and backward.
+        step_expect = expected(full_pass=5 * (MESH_STEP_ITERS - 1),
+                               batch_norm_act=bn_launches(
+                                   model, 5 * MESH_STEP_ITERS))
         start = _cpu_state(state)
         walls, refs = {}, {}
 
@@ -2843,7 +3170,9 @@ def phase_mesh(dev):
             model, ds, jcfg, batches, state, dev)
         check("mesh_joint_unsharded", launches,
               expected(fused_light_augment=MESH_JOINT_STEPS,
-                       resized_ce=2 * MESH_JOINT_STEPS), True,
+                       resized_ce=2 * MESH_JOINT_STEPS,
+                       batch_norm_act=bn_launches(model, MESH_JOINT_STEPS)),
+              True,
               "joint steps at batch 64, 1001 channels, unsharded | seconds "
               "a step {} | peak memory {:.2f} GB".format(
                   ["{:.4f}".format(s) for s in j_seconds], j_peak / 1e9))
@@ -3131,8 +3460,11 @@ def phase_spatial(dev):
     Each sharded result is held against the world of 1's: probabilities
     within SPATIAL_PROB_BAR abs, the step's state (params, running stats)
     within SPATIAL_STATE_BAR of its largest change and the loss within
-    SPATIAL_STATE_BAR relative; no kernel is launched on any run. Returns
-    {path: launches}."""
+    SPATIAL_STATE_BAR relative. No kernel is launched on the world of 2's
+    runs (a batch norm under a spatial context takes the composition); the
+    world of 1's step runs every batch norm forward and backward through
+    `batch_norm_act`, and its decoders' eval forward the skip decoder's.
+    Returns {path: launches}."""
     import shutil
     import tempfile
     import torch
@@ -3142,6 +3474,12 @@ def phase_spatial(dev):
     workdir = tempfile.mkdtemp(prefix="spatial_smoke_")
     counts, failed = {}, []
     none = {k: 0 for k in KERNELS}
+    w1_expect = {
+        "forward": none,
+        "step": expected(batch_norm_act=bn_launches(
+            _spatial_model("cpu", False), 1)),
+        "decoders": expected(batch_norm_act=bn_launches(
+            _spatial_model("cpu", True), 0, 1))}
     try:
         start = _cpu_state(init_model_state(_spatial_model("cpu", False),
                                             OptimizerConfig("sgd")))
@@ -3151,8 +3489,8 @@ def phase_spatial(dev):
             log("spatial[w1_{}]: world of 1 | wall {:.3f} s | peak memory "
                 "{:.2f} GB | launches {} (expect {})".format(
                     run, w1[run]["wall"], w1[run]["peak"] / 1e9,
-                    w1[run]["launches"], none))
-            if w1[run]["launches"] != none:
+                    w1[run]["launches"], w1_expect[run]))
+            if w1[run]["launches"] != w1_expect[run]:
                 failed.append("spatial_w1_" + run)
         torch.cuda.empty_cache()
 
@@ -3381,7 +3719,8 @@ def _drive(dev):
 
     run(phase_build)
     entries = [run(phase_kernel, dev), run(phase_cheap_kernel, dev),
-               run(phase_light_kernel, dev), run(phase_head_kernel, dev)]
+               run(phase_light_kernel, dev), run(phase_head_kernel, dev),
+               run(phase_bn_kernel, dev)]
     run(phase_agree, dev)
     run(phase_agree_joint, dev)
     by_path = {"slice": run(phase_slice, dev)}
@@ -3426,7 +3765,8 @@ def main() -> int:
     # meta-step for full_pass, the split-route evaluation for cheap_pass,
     # the joint run for fused_light_augment; every path's counts beside.
     main_path = {"full_pass": "slice", "cheap_pass": "eval_split",
-                 "fused_light_augment": "joint", "resized_ce": "joint"}
+                 "fused_light_augment": "joint", "resized_ce": "joint",
+                 "batch_norm_act": "joint"}
     for e in entries:
         e["launches"] = by_path[main_path[e["name"]]][e["name"]]
         e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}

@@ -90,7 +90,7 @@ class _ConvNlBn(nn.Module):
             features, compute_dtype=compute_dtype, axis_name=bn_axis_name)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        return self.batch_normalization(layers.swish(self.conv(x)), train)
+        return self.batch_normalization(self.conv(x), train, swish="before")
 
 
 class ResidualSkipDecoder(nn.Module):
@@ -148,10 +148,10 @@ class _SepConv(nn.Module):
             features, always_batch_stats=True, axis_name=bn_axis_name)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        x = layers.swish(self.batch_normalization(self.depthwise_conv(x),
-                                                  train))
-        return layers.swish(self.batch_normalization_1(
-            self.pointwise_conv(x), train))
+        x = self.batch_normalization(self.depthwise_conv(x), train,
+                                     swish="after")
+        return self.batch_normalization_1(self.pointwise_conv(x), train,
+                                          swish="after")
 
 
 class Aspp(nn.Module):
@@ -272,8 +272,9 @@ class EfficientLab(nn.Module):
             decoded = resize_bilinear_align_corners_nchw(decoded, in_h // 4,
                                                          in_w // 4)
             skip = self.decode_skip_batch_normalization(
-                self.decode_skip_proj(endpoints["reduction_2"]), train)
-            decoded = _cat([decoded, layers.swish(skip)])
+                self.decode_skip_proj(endpoints["reduction_2"]), train,
+                swish="after")
+            decoded = _cat([decoded, skip])
             decoded = self.sep_conv_1(self.sep_conv_0(decoded, train), train)
         for i in self.rsd:
             decoded = getattr(self, "decode_skip_connections_{}".format(

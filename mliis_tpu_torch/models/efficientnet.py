@@ -149,10 +149,10 @@ class MBConvBlock(nn.Module):
         a = self.args
         x = inputs
         if a.expand_ratio != 1:
-            x = layers.swish(self.batch_normalization(self.expand_conv(x),
-                                                      train))
-        x = layers.swish(self.batch_normalization_1(self.depthwise_conv(x),
-                                                    train))
+            x = self.batch_normalization(self.expand_conv(x), train,
+                                         swish="after")
+        x = self.batch_normalization_1(self.depthwise_conv(x), train,
+                                       swish="after")
         if self.has_se:
             se = spatial.mean_hw(x)
             se = self.se_expand(layers.swish(self.se_reduce(se)))
@@ -206,8 +206,8 @@ class EfficientNetFeatures(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         blocks = self.blocks_args
-        x = layers.swish(self.stem_batch_normalization(self.stem_conv(x),
-                                                       train))
+        x = self.stem_batch_normalization(self.stem_conv(x), train,
+                                          swish="after")
         endpoints = {}
         reduction_idx = 0
         for idx in range(len(blocks)):

@@ -19,7 +19,14 @@ What differs from the obvious `nn.Conv2d` / `nn.BatchNorm2d`:
     that mesh axis (sync-BN, the JAX package's `lax.pmean`), so every
     shard of a split batch normalizes by, and keeps running stats of, the
     whole batch's moments; the axis must be bound
-    (`parallel.mesh.bound`) when batch moments are taken;
+    (`parallel.mesh.bound`) when batch moments are taken. The swish beside
+    a norm is the norm's (`swish="after"` or `"before"`, as the model
+    places it), so that a float32 CUDA map normalized by its batch's
+    moments, with no mesh axis or spatial context, goes through one
+    hand-written kernel pair each way with its swish
+    (`ops/batch_norm_act`); everything else (the CPU, bf16, sync-BN, a
+    spatial context, the running moments, a traced forward) takes the
+    composition of PyTorch ops;
   - under a bound spatial context (`parallel/spatial.py`, the H axis split
     over ranks) a conv with a window (k > 1 or stride > 1) fetches the
     input rows its owned output rows read and pads only W, a batch norm
@@ -54,6 +61,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mliis_tpu_torch.ops import batch_norm_act as bn_act
 from mliis_tpu_torch.parallel import mesh as mesh_lib
 from mliis_tpu_torch.parallel import spatial
 
@@ -230,7 +238,9 @@ class FusedBatchNorm(nn.Module):
     updated, so an eval-mode forward leaves the buffers as they were.
     `axis_name` averages the batch moments over that bound mesh axis
     (under a task axis, every task's in one all-reduce); without one, a
-    bound spatial context sums them over every rank's rows."""
+    bound spatial context sums them over every rank's rows. `swish` is the
+    swish beside the norm: applied to its output ("after"), to its input
+    ("before"), or none (None)."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-3,
@@ -254,7 +264,33 @@ class FusedBatchNorm(nn.Module):
             self.mean.zero_()
             self.var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def _kernel_route(self, x: torch.Tensor, train: bool) -> bool:
+        """Whether the norm goes through `ops/batch_norm_act`'s kernels: a
+        float32 CUDA map normalized by its batch's moments, with no mesh
+        axis, no spatial context, and not traced (the kernels read
+        memory)."""
+        return (x.device.type == "cuda" and x.dtype == torch.float32
+                and self.compute_dtype in (None, torch.float32)
+                and (train or self.always_batch_stats)
+                and self.axis_name is None and spatial.current() is None
+                and not torch.compiler.is_compiling())
+
+    def forward(self, x: torch.Tensor, train: bool,
+                swish: Optional[str] = None) -> torch.Tensor:
+        if swish not in (None, "after", "before"):
+            raise ValueError("swish must be None, 'after' or 'before'")
+        if self._kernel_route(x, train):
+            running = ((self.mean.view(-1), self.var.view(-1)) if train
+                       else (None, None))
+            return bn_act.batch_norm_act(
+                x, self.scale.reshape(-1), self.bias.reshape(-1), *running,
+                momentum=self.momentum, eps=self.epsilon, swish=swish)
+        if swish == "before":
+            x = F.silu(x)
+        y = self._composition(x, train)
+        return F.silu(y) if swish == "after" else y
+
+    def _composition(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if train or self.always_batch_stats:
             xf = x.float()
             if self.axis_name is None and spatial.current() is not None:

@@ -73,8 +73,10 @@ TRANSLATE, FLIPLR, NOISE, EXPOSURE = range(len(LIGHT_OPS))
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PACKAGE, "csrc")
-# csrc/<name>.cu; resized_ce is the joint loss head's (ops/resized_ce.py).
-KERNEL_SOURCES = ("full_pass", "cheap_pass", "light_augment", "resized_ce")
+# csrc/<name>.cu; resized_ce is the joint loss head's (ops/resized_ce.py),
+# batch_norm_act the model's batch norm and swish (ops/batch_norm_act.py).
+KERNEL_SOURCES = ("full_pass", "cheap_pass", "light_augment", "resized_ce",
+                  "batch_norm_act")
 _HEADERS = ("philox.cuh", "cheap_ops.cuh", "row_ring.cuh")
 BUILD_DIR = os.path.join(_PACKAGE, "_build")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -800,6 +802,7 @@ def build_library(names: Sequence[str] = KERNEL_SOURCES,
 
 
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_I64 = ctypes.c_longlong
 _ARGTYPES = {
     "full_pass": [_PTR] * 9 + [_I32] * 8 + [_F32] * 6 + [_PTR],
     "cheap_pass": [_PTR] * 6 + [_I32] * 6 + [_F32] * 6 + [_I32] * 4
@@ -810,6 +813,8 @@ _ARGTYPES = {
     + [_F32, _I32, _PTR],
     "resized_ce_backward": [_PTR, _I32] + [_PTR] * 4 + [_I32] + [_PTR] * 5
     + [_I32] * 6 + [_F32, _I32, _PTR],
+    "batch_norm_act": [_I32] * 4 + [_PTR] * 13 + [_I64] + [_I32] * 5
+    + [_I64] + [_I32] * 2 + [_F32] * 3 + [_PTR],
 }
 
 

@@ -393,28 +393,27 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+# The kernel wrappers' names in `kernel_library.launches`, every one
+# counted and checked.
 KERNELS = ("full_pass", "cheap_pass", "fused_light_augment", "resized_ce",
            "batch_norm_act")
 
 
-def _wrapper(name):
-    """The kernel wrapper that counts the launches of `name`."""
-    from mliis_tpu_torch.ops import augment_kernels as ak
-    from mliis_tpu_torch.ops import batch_norm_act as bn_act
-    from mliis_tpu_torch.ops import resized_ce as rce
-    module = {"resized_ce": rce, "batch_norm_act": bn_act}.get(name, ak)
-    return getattr(module, name)
-
-
 def reset_launches():
     """Every kernel wrapper's launch count set to 0."""
-    for name in KERNELS:
-        _wrapper(name).launches = 0
+    from mliis_tpu_torch.ops import kernel_library
+    kernel_library.launches.clear()
 
 
 def read_launches():
-    """{kernel: launches since the last reset}."""
-    return {name: _wrapper(name).launches for name in KERNELS}
+    """{kernel: launches since the last reset}, for every one of KERNELS;
+    a launch counted under another name raises."""
+    from mliis_tpu_torch.ops import kernel_library
+    unknown = set(kernel_library.launches) - set(KERNELS)
+    if unknown:
+        raise AssertionError("launches of kernels not in KERNELS: {}".format(
+            sorted(unknown)))
+    return {name: kernel_library.launches[name] for name in KERNELS}
 
 
 def expected(**counts):
@@ -487,9 +486,9 @@ BUILD_USAGE = {}  # kernel source -> ptxas's registers and spills
 
 
 def phase_build():
-    from mliis_tpu_torch.ops import augment_kernels as ak
+    from mliis_tpu_torch.ops import kernel_library
     t0 = time.time()
-    built = ak.build_library(verbose=True)
+    built = kernel_library.build(verbose=True)
     for name, (path, seconds, out) in built.items():
         usage = [ln.strip() for ln in out.splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -732,11 +731,6 @@ def _plan_text(plan):
                            plan.smem))
 
 
-def _sms(dev):
-    import torch
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def _cheap_pass_at(dev, h, w, b=8, x=None):
     """`cheap_pass` against its plain version at B x 5 x h x w: the fixed
     rows (8, repeated to B), then rows drawn as the split route draws them
@@ -745,6 +739,7 @@ def _cheap_pass_at(dev, h, w, b=8, x=None):
     plan."""
     import torch
     from mliis_tpu_torch.ops import augment_kernels as ak
+    from mliis_tpu_torch.ops import kernel_library
     if x is None:
         x = _planar_batch(dev, b, max(h, w))[:, :, :h, :w].contiguous()
     seeds, perm, num, window, identity = _cheap_rows(dev, b)
@@ -770,7 +765,8 @@ def _cheap_pass_at(dev, h, w, b=8, x=None):
         if i == 0:
             exact &= bool(torch.equal(out[identity], x[identity]))
             changed = int((out != x).flatten(1).any(1).sum())
-    plan = ak.cheap_pass_plan(b, x.shape[1], h, w, _sms(dev))
+    plan = ak.cheap_pass_plan(b, x.shape[1], h, w,
+                              kernel_library.sm_count(x.device.index))
     moving = int((~identity).sum())
     log("kernel[cheap_pass] {}: max abs image {:.3g} (<= 1e-3) | masks "
         "exact, identity rows unchanged {} | fixed rows changed {} of {} "
@@ -837,6 +833,7 @@ def _light_at(dev, b, h, w, cover):
     the inputs, the noised samples and the launch's plan."""
     import torch
     from mliis_tpu_torch.ops import augment_kernels as ak
+    from mliis_tpu_torch.ops import kernel_library
     gen = torch.Generator(device=dev).manual_seed(11)
     images = torch.randint(0, 256, (b, h, w, 3), generator=gen,
                            device=dev).float()
@@ -872,7 +869,8 @@ def _light_at(dev, b, h, w, cover):
                                         prob_original=1.0)
     identity = bool(torch.equal(id_i, images) and torch.equal(id_m, masks))
     changed = float((out_i != images).any(-1).float().mean())
-    plan = ak.light_plan(b, h, w, _sms(dev))
+    plan = ak.light_plan(b, h, w,
+                         kernel_library.sm_count(images.device.index))
     log("kernel[light_augment]: B={} {}x{} | max abs image {:.3g} (<= 1e-3) "
         "| labels exact {} | prob_original=1 identity {} | pixels changed "
         "{:.3f} | {}".format(b, h, w, err, labels_exact, identity, changed,
@@ -1211,11 +1209,11 @@ def _bn_check(dev, shape, channels_last, swish):
     for _ in range(2):
         bn.mean.copy_(start[0])
         bn.var.copy_(start[1])
-        bn_act.batch_norm_act.launches = 0
+        reset_launches()
         xr = x.clone().requires_grad_(True)
         y = bn(xr, True, swish=swish)
         grads = torch.autograd.grad(y, (xr, bn.scale, bn.bias), g)
-        launches = bn_act.batch_norm_act.launches
+        launches = read_launches()["batch_norm_act"]
         runs.append((y.detach(),) + grads + (bn.mean.clone(),
                                              bn.var.clone()))
         del xr, y, grads
@@ -1273,14 +1271,14 @@ def bn_inputs(dev, backbone, size, batch=64):
     import torch
     from mliis_tpu_torch.models.efficientlab import EfficientLab
     from mliis_tpu_torch.models.layers import FusedBatchNorm
-    from mliis_tpu_torch.ops import batch_norm_act as bn_act
+    from mliis_tpu_torch.ops import kernel_library
     model = EfficientLab(n_classes=1000, feature_extractor_name=backbone,
                          rsd=(2,), final_layer_dropout_rate=0.0).to(dev)
     seen = []
 
     def hook(module, args, kwargs):
         x = args[0]
-        seen.append((tuple(x.shape), bn_act._channels_last(x),
+        seen.append((tuple(x.shape), kernel_library.channels_last(x),
                      kwargs.get("swish")))
 
     handles = [m.register_forward_pre_hook(hook, with_kwargs=True)

@@ -38,7 +38,7 @@ def main():
     from mliis_tpu_torch.meta import inner_loop as il
     from mliis_tpu_torch.models.efficientlab import EfficientLab
     from mliis_tpu_torch.ops import augment as taug
-    from mliis_tpu_torch.ops import augment_kernels as ak
+    from mliis_tpu_torch.ops import kernel_library
     from mliis_tpu_torch.utils.checkpoint import load_jax_npz
 
     dev = resolve_device()
@@ -73,7 +73,7 @@ def main():
         out, tops = {}, {}
         for route, fused in (("fused", True), ("split", False)):
             taug.PALLAS_FUSED_SINGLE_LAUNCH = fused
-            ak.full_pass.launches = ak.cheap_pass.launches = 0
+            kernel_library.launches.clear()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 task(fused)
@@ -92,8 +92,8 @@ def main():
                 "device_idle_share": max(0.0, 1.0 - device_ms / (wall * 1e3)),
                 "augment_kernel_ms": aug_ms,
                 "augment_kernel_share_of_device": aug_ms / device_ms,
-                "launches": {"full_pass": ak.full_pass.launches,
-                             "cheap_pass": ak.cheap_pass.launches}}
+                "launches": {k: kernel_library.launches[k]
+                             for k in ("full_pass", "cheap_pass")}}
             tops[route] = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     finally:
         taug.PALLAS_FUSED_SINGLE_LAUNCH = True

@@ -44,7 +44,7 @@ def main():
     from mliis_tpu_torch.meta import learners as lr
     from mliis_tpu_torch.meta.episodes import draw_seed
     from mliis_tpu_torch.models.efficientlab import EfficientLab
-    from mliis_tpu_torch.ops import augment_kernels as ak
+    from mliis_tpu_torch.ops import kernel_library
 
     batched = "--batched" in sys.argv[1:]
     dev = resolve_device()
@@ -85,12 +85,12 @@ def main():
     state, wall_meta = timed(meta_step, state)
     one = lambda st: meta_step(st, one_cfg, one_step)  # noqa: E731
     state, wall = timed(one, state)
-    ak.full_pass.launches = 0
+    kernel_library.launches.clear()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         state = one(state)
         torch.cuda.synchronize()
-    launches = ak.full_pass.launches
+    launches = kernel_library.launches["full_pass"]
 
     by_name = {}
     for evt in prof.events():

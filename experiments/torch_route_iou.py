@@ -62,7 +62,7 @@ def main():
     from mliis_tpu_torch.meta import inner_loop as il
     from mliis_tpu_torch.models.efficientlab import EfficientLab
     from mliis_tpu_torch.ops import augment as taug
-    from mliis_tpu_torch.ops import augment_kernels as ak
+    from mliis_tpu_torch.ops import kernel_library
     from mliis_tpu_torch.utils.checkpoint import load_jax_npz
 
     dev = resolve_device()
@@ -95,14 +95,15 @@ def main():
                                         images.shape[1])
                 for route, fused in routes:
                     taug.PALLAS_FUSED_SINGLE_LAUNCH = fused
-                    ak.full_pass.launches = ak.cheap_pass.launches = 0
+                    kernel_library.launches.clear()
                     gen = torch.Generator(device=dev).manual_seed(
                         100000 * (s + 1) + t)
                     per_image = eval_task(state, images[t], masks[t], draws,
                                           gen, LR, 0.5, AUG_RATE)
                     ious[route][s, t] = np.nanmean(per_image.cpu().numpy())
-                    launches[route] = {"full_pass": ak.full_pass.launches,
-                                       "cheap_pass": ak.cheap_pass.launches}
+                    launches[route] = {
+                        k: kernel_library.launches[k]
+                        for k in ("full_pass", "cheap_pass")}
             print("sample {}: fused {:.4f} split {:.4f} ({:.1f} s so far)"
                   .format(s, ious["fused"][s].mean(), ious["split"][s].mean(),
                           time.time() - t0), flush=True)

@@ -37,11 +37,11 @@ PHASES = ("words", "layout+normals", "values", "tables", "tables sync",
 POINTS, SM = 11, 10  # kTracePoints; the SM id's slot
 
 
-def build_traced(ak, name):
-    lib = os.path.join(ak.BUILD_DIR, "trace_{}.so".format(name))
-    os.makedirs(ak.BUILD_DIR, exist_ok=True)
-    subprocess.run([ak._nvcc(), "-DROW_TRACE", *ak._NVCC_FLAGS, "-o", lib,
-                    os.path.join(ak._CSRC_DIR, name + ".cu")], check=True)
+def build_traced(kl, name):
+    lib = os.path.join(kl.BUILD_DIR, "trace_{}.so".format(name))
+    os.makedirs(kl.BUILD_DIR, exist_ok=True)
+    subprocess.run([kl.nvcc(), "-DROW_TRACE", *kl.NVCC_FLAGS, "-o", lib,
+                    os.path.join(kl.CSRC_DIR, name + ".cu")], check=True)
     return ctypes.CDLL(lib)
 
 
@@ -68,16 +68,21 @@ def main():
     import torch
     import chip_smoke as cs
     from mliis_tpu_torch.ops import augment_kernels as ak
+    from mliis_tpu_torch.ops import kernel_library as kl
     dev = torch.device("cuda")
-    libs = {name: build_traced(ak, name)
+    libs = {name: build_traced(kl, name)
             for name in ("cheap_pass", "light_augment")}
-    for name, lib in libs.items():
-        fn = getattr(lib, name + "_launch")
-        fn.argtypes = ak._ARGTYPES[name]
-        fn.restype = ctypes.c_int
+    for lib in libs.values():
         lib.row_trace_read.argtypes = [ctypes.c_void_p]
-    ak._library = lambda name: (getattr(libs[name], name + "_launch")
-                                if name in libs else None)
+
+    def bind(source, function, argtypes):
+        """The wrappers' entry points, from the traced builds."""
+        fn = getattr(libs[source], function + "_launch")
+        fn.argtypes = list(argtypes) + [kl.PTR]
+        fn.restype = kl.I32
+        return fn
+
+    kl.bind = bind
     flush = torch.empty(32 * 2 ** 20, device=dev)
 
     raw = {}

@@ -1,5 +1,5 @@
-"""The augmentation kernels, each with its wrapper, launch count and plain
-PyTorch version, mirroring the TPU kernels of
+"""The augmentation kernels, each with its wrapper and plain PyTorch
+version, mirroring the TPU kernels of
 `mliis_tpu/ops/pallas_augment.py`:
 
 - `full_pass` (csrc/full_pass.cu) replaces `full_pass`
@@ -24,9 +24,8 @@ taking them as they come (csrc/row_ring.cuh): the blocks take the output
 lines in a sample-interleaved order (`unit_order`), and `row_pass_plan`
 picks the grid, the ring and the copy mode.
 
-Every kernel is compiled from its source under csrc/ by `nvcc` for
-sm_90a into BUILD_DIR at first use, one shared library per source, and
-bound with ctypes.
+Each wrapper builds, binds, launches and counts its kernel through
+`ops/kernel_library`.
 
 Random numbers come from a counter-based Philox4x32-10 keyed by the
 per-sample seed (csrc/philox.cuh), which the kernels and the plain
@@ -50,18 +49,14 @@ half-spectrum matrices are built in float64 the same way and split into
 TF32 hi and lo parts (`tf32_split`), whose three products keep FP32
 accuracy.
 """
-import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from mliis_tpu_torch.ops import kernel_library
+from mliis_tpu_torch.ops.kernel_library import F32, I32, PTR, f32
 from mliis_tpu_torch.utils import profiling
 
 NUM_OPS = 6
@@ -71,16 +66,6 @@ ROTATE_OP = 5
 LIGHT_OPS = ("translate", "fliplr", "noise", "exposure")
 TRANSLATE, FLIPLR, NOISE, EXPOSURE = range(len(LIGHT_OPS))
 
-_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC_DIR = os.path.join(_PACKAGE, "csrc")
-# csrc/<name>.cu; resized_ce is the joint loss head's (ops/resized_ce.py),
-# batch_norm_act the model's batch norm and swish (ops/batch_norm_act.py).
-KERNEL_SOURCES = ("full_pass", "cheap_pass", "light_augment", "resized_ce",
-                  "batch_norm_act")
-_HEADERS = ("philox.cuh", "cheap_ops.cuh", "row_ring.cuh")
-BUILD_DIR = os.path.join(_PACKAGE, "_build")
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC")
 MAX_FULL_PASS_N = 512  # the largest plane full_pass_plan fits a cluster
 _MAX_CLUSTER, _MAX_GROUP = 8, 64   # kMaxCluster, kMaxGroup in full_pass.cu
 _MAX_SMEM = 232448 - 1024          # kMaxSmem in full_pass.cu
@@ -300,7 +285,7 @@ def _sms_and_alignment(dev: torch.device, tensors: Sequence[torch.Tensor]
                        ) -> Tuple[int, bool]:
     """The SM count of `dev`'s card and whether every tensor is 16-byte
     aligned."""
-    return (torch.cuda.get_device_properties(dev).multi_processor_count,
+    return (kernel_library.sm_count(dev.index),
             all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
@@ -744,90 +729,13 @@ def fused_light_augment_reference(seeds: torch.Tensor, images: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# The kernel: build, load, launch.
+# The kernels: their C arguments before the stream (`kernel_library.bind`),
+# checks and launches.
 # --------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    found = path if os.path.exists(path) else shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (CUDA_HOME or PATH)")
-    return found
-
-
-def _library_path(name: str) -> str:
-    """BUILD_DIR/<name>_<digest>.so, the digest over the source, the shared
-    headers and the flags."""
-    h = hashlib.sha1(" ".join(_NVCC_FLAGS).encode())
-    for fname in (name + ".cu",) + _HEADERS:
-        with open(os.path.join(_CSRC_DIR, fname), "rb") as f:
-            h.update(f.read())
-    return os.path.join(BUILD_DIR, "{}_{}.so".format(name, h.hexdigest()[
-        :12]))
-
-
-def build_library(names: Sequence[str] = KERNEL_SOURCES,
-                  verbose: bool = False) -> Dict[str, Tuple[str, float, str]]:
-    """Compile csrc/<name>.cu for sm_90a into BUILD_DIR, one `nvcc` per
-    source, all started together (once per digest). Returns {name: (library
-    path, build seconds, compiler output)}; 0 seconds for a library that was
-    already built."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    t0 = time.time()
-    jobs, out = {}, {}
-    for name in names:
-        lib = _library_path(name)
-        if os.path.exists(lib):
-            out[name] = (lib, 0.0, "")
-            continue
-        tmp = "{}.{}.tmp".format(lib, os.getpid())
-        cmd = [_nvcc(), *(("-Xptxas", "-v") if verbose else ()),
-               *_NVCC_FLAGS, "-o", tmp,
-               os.path.join(_CSRC_DIR, name + ".cu")]
-        jobs[name] = (lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    failed = []
-    for name, (lib, tmp, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append("{}:\n{}".format(name, log))
-            continue
-        os.replace(tmp, lib)
-        out[name] = (lib, time.time() - t0, log)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return out
-
-
-_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_I64 = ctypes.c_longlong
-_ARGTYPES = {
-    "full_pass": [_PTR] * 9 + [_I32] * 8 + [_F32] * 6 + [_PTR],
-    "cheap_pass": [_PTR] * 6 + [_I32] * 6 + [_F32] * 6 + [_I32] * 4
-    + [_PTR],
-    "light_augment": [_PTR] * 5 + [_I32] * 4 + [_F32] * 3 + [_I32] * 4
-    + [_PTR],
-    "resized_ce_forward": [_PTR, _I32] * 4 + [_PTR] * 7 + [_I32] * 6
-    + [_F32, _I32, _PTR],
-    "resized_ce_backward": [_PTR, _I32] + [_PTR] * 4 + [_I32] + [_PTR] * 5
-    + [_I32] * 6 + [_F32, _I32, _PTR],
-    "batch_norm_act": [_I32] * 4 + [_PTR] * 13 + [_I64] + [_I32] * 5
-    + [_I64] + [_I32] * 2 + [_F32] * 3 + [_PTR],
-}
-
-
-@functools.lru_cache(maxsize=None)
-def _library(name: str, function: Optional[str] = None) -> Callable:
-    """The C launch function `<function>_launch` (by default `<name>_launch`)
-    of csrc/<name>.cu."""
-    function = function or name
-    lib = ctypes.CDLL(build_library((name,))[name][0])
-    fn = getattr(lib, function + "_launch")
-    fn.argtypes = _ARGTYPES[function]
-    fn.restype = _I32
-    return fn
+_FULL_PASS_ARGS = [PTR] * 9 + [I32] * 8 + [F32] * 6
+_CHEAP_PASS_ARGS = [PTR] * 6 + [I32] * 6 + [F32] * 6 + [I32] * 4
+_LIGHT_ARGS = [PTR] * 5 + [I32] * 4 + [F32] * 3 + [I32] * 4
 
 
 def _check(name, x, c_img, **index_args):
@@ -852,9 +760,9 @@ def _float_consts(noise_mean_sd, exposure_mean_sd, eraser_s_l, eraser_s_h,
                   eraser_r_1, eraser_r_2):
     """The six float op constants both planar kernels take, rounded to
     float32 as the plain version rounds them."""
-    return (_f32(noise_mean_sd), _f32(exposure_mean_sd), _f32(eraser_s_l),
-            _f32(eraser_s_h - eraser_s_l), _f32(eraser_r_1),
-            _f32(eraser_r_2 - eraser_r_1))
+    return (f32(noise_mean_sd), f32(exposure_mean_sd), f32(eraser_s_l),
+            f32(eraser_s_h - eraser_s_l), f32(eraser_r_1),
+            f32(eraser_r_2 - eraser_r_1))
 
 
 @profiling.spanned("augment.full_pass")
@@ -878,9 +786,9 @@ def full_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
         3 noise, 4 exposure, 5 rotation).
       num: [B] int32 prefix length.
       rot: [B, 4] int32 (angle degrees, border mode, fill with noise, cval).
-    Returns the transformed batch. A CUDA tensor launches the kernel (and
-    counts it in `full_pass.launches`); a CPU tensor takes the plain
-    version; any other device raises.
+    Returns the transformed batch. A CUDA tensor launches the kernel
+    (counted under "full_pass" in `kernel_library.launches`); a CPU tensor
+    takes the plain version; any other device raises.
     """
     _check("full_pass", x, c_img, seeds=(seeds, ()), perm=(perm, (NUM_OPS,)),
            num=(num, ()), rot=(rot, (4,)))
@@ -903,26 +811,17 @@ def full_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
     if c_img > _MAX_IMG_PLANES:
         raise ValueError("full_pass takes at most {} image planes on the "
                          "card".format(_MAX_IMG_PLANES))
-    launch = _library("full_pass")
+    fn = kernel_library.bind("full_pass", "full_pass", _FULL_PASS_ARGS)
     out = torch.empty_like(x)
     trig = rotation_trig(rot)
     cs, group, smem = full_pass_plan(n)
     fwd, inv = full_pass_tables(n, x.device)
-    with torch.cuda.device(x.device):   # the launch goes to x's card
-        err = launch(
-            x.data_ptr(), out.data_ptr(), seeds.data_ptr(), perm.data_ptr(),
-            num.data_ptr(), rot.data_ptr(), trig.data_ptr(), fwd.data_ptr(),
-            inv.data_ptr(), b, c_tot, n, c_img, max_shift, cs, group, smem,
-            *_float_consts(**floats),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("full_pass kernel launch failed: cudaError {}"
-                           .format(err))
-    full_pass.launches += 1
+    kernel_library.launch(
+        "full_pass", fn, x.device, x.data_ptr(), out.data_ptr(),
+        seeds.data_ptr(), perm.data_ptr(), num.data_ptr(), rot.data_ptr(),
+        trig.data_ptr(), fwd.data_ptr(), inv.data_ptr(), b, c_tot, n, c_img,
+        max_shift, cs, group, smem, *_float_consts(**floats))
     return out
-
-
-full_pass.launches = 0
 
 
 @profiling.spanned("augment.cheap_pass")
@@ -942,9 +841,9 @@ def cheap_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
         stage (op 5) is skipped.
       num: [B] int32 prefix length.
       window: [B, 2] int32 [lo, hi): the stages this pass applies.
-    Returns the transformed batch. A CUDA tensor launches the kernel (and
-    counts it in `cheap_pass.launches`); a CPU tensor takes the plain
-    version; any other device raises.
+    Returns the transformed batch. A CUDA tensor launches the kernel
+    (counted under "cheap_pass" in `kernel_library.launches`); a CPU tensor
+    takes the plain version; any other device raises.
     """
     _check("cheap_pass", x, c_img, seeds=(seeds, ()),
            perm=(perm, (NUM_OPS,)), num=(num, ()), window=(window, (2,)))
@@ -961,30 +860,16 @@ def cheap_pass(seeds: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
                                     **floats)
     if x.device.type != "cuda":
         raise ValueError("cheap_pass runs on cuda or cpu tensors")
-    launch = _library("cheap_pass")
+    fn = kernel_library.bind("cheap_pass", "cheap_pass", _CHEAP_PASS_ARGS)
     out = torch.empty_like(x)
     b, c_tot, h, w = x.shape
     plan = cheap_pass_plan(b, c_tot, h, w,
                            *_sms_and_alignment(x.device, (x, out)))
-    with torch.cuda.device(x.device):
-        err = launch(
-            x.data_ptr(), out.data_ptr(), seeds.data_ptr(), perm.data_ptr(),
-            num.data_ptr(), window.data_ptr(), b, c_tot, h, w, c_img,
-            max_shift, *_float_consts(**floats), *plan,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("cheap_pass kernel launch failed: cudaError {}"
-                           .format(err))
-    cheap_pass.launches += 1
+    kernel_library.launch(
+        "cheap_pass", fn, x.device, x.data_ptr(), out.data_ptr(),
+        seeds.data_ptr(), perm.data_ptr(), num.data_ptr(), window.data_ptr(),
+        b, c_tot, h, w, c_img, max_shift, *_float_consts(**floats), *plan)
     return out
-
-
-cheap_pass.launches = 0
-
-
-def _f32(v: float) -> float:
-    """v rounded to float32, as the kernel's float argument holds it."""
-    return float(torch.tensor(v, dtype=torch.float32))
 
 
 @profiling.spanned("augment.light")
@@ -1000,9 +885,9 @@ def fused_light_augment(seeds: torch.Tensor, images: torch.Tensor,
       images: [B, H, W, 3] contiguous float32 in [0, 255].
       masks: [B, H, W] contiguous float32 class-id maps.
     Returns augmented (images, masks) of the same shapes, the masks rounded
-    to integers. A CUDA tensor launches the kernel (and counts it in
-    `fused_light_augment.launches`); a CPU tensor takes the plain version;
-    any other device raises.
+    to integers. A CUDA tensor launches the kernel (counted under
+    "fused_light_augment" in `kernel_library.launches`); a CPU tensor takes
+    the plain version; any other device raises.
     """
     if images.dtype != torch.float32 or images.ndim != 4 \
             or images.shape[-1] != 3 or not images.is_contiguous():
@@ -1021,22 +906,13 @@ def fused_light_augment(seeds: torch.Tensor, images: torch.Tensor,
         return fused_light_augment_reference(seeds, images, masks, **kwargs)
     if images.device.type != "cuda":
         raise ValueError("fused_light_augment runs on cuda or cpu tensors")
-    launch = _library("light_augment")
+    fn = kernel_library.bind("light_augment", "light_augment", _LIGHT_ARGS)
     out_images, out_masks = torch.empty_like(images), torch.empty_like(masks)
     plan = light_plan(b, h, w, *_sms_and_alignment(
         images.device, (images, masks, out_images, out_masks)))
-    with torch.cuda.device(images.device):
-        err = launch(
-            images.data_ptr(), masks.data_ptr(), out_images.data_ptr(),
-            out_masks.data_ptr(), seeds.data_ptr(), b, h, w, max_shift,
-            _f32(prob_original), _f32(noise_mean_sd),
-            _f32(exposure_mean_sd), *plan,
-            torch.cuda.current_stream(images.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("fused_light_augment kernel launch failed: "
-                           "cudaError {}".format(err))
-    fused_light_augment.launches += 1
+    kernel_library.launch(
+        "fused_light_augment", fn, images.device, images.data_ptr(),
+        masks.data_ptr(), out_images.data_ptr(), out_masks.data_ptr(),
+        seeds.data_ptr(), b, h, w, max_shift, f32(prob_original),
+        f32(noise_mean_sd), f32(exposure_mean_sd), *plan)
     return out_images, out_masks
-
-
-fused_light_augment.launches = 0

@@ -1,7 +1,6 @@
 """The model's batch norm by the batch's moments with the swish beside it
 (`models/layers.FusedBatchNorm`), in two hand-written kernel launches each
-way (csrc/batch_norm_act.cu), with its plain PyTorch version and launch
-count.
+way (csrc/batch_norm_act.cu), with its plain PyTorch version.
 
 `batch_norm_act(x, scale, bias, running_mean, running_var, momentum, eps,
 swish)` computes, per channel of x [N, C, H, W] over its N H W values of u
@@ -15,7 +14,8 @@ m and the biased v. Its backward is the exact gradient of that formula
 
   - A CUDA tensor launches the kernels: the moments, then y, forward; the
     gradient's two sums, then dx, backward (no dx launch where x needs no
-    gradient). Each counts in `batch_norm_act.launches`. x is taken in its
+    gradient). Each counts under "batch_norm_act" in
+    `kernel_library.launches`. x is taken in its
     memory format, NCHW or channels-last (another layout is copied to NCHW
     first), and y and dx are written in it. The forward saves x and five
     [C] vectors, not z, y or the squares.
@@ -32,7 +32,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from mliis_tpu_torch.ops import augment_kernels
+from mliis_tpu_torch.ops import kernel_library
+from mliis_tpu_torch.ops.kernel_library import (F32, I32, I64, PTR,
+                                                channels_last)
 
 # csrc/batch_norm_act.cu's constants.
 THREADS = 256        # kThreads
@@ -118,11 +120,6 @@ def update_running_stats_(running_mean: torch.Tensor,
 # The kernels.
 # --------------------------------------------------------------------------
 
-def _channels_last(x: torch.Tensor) -> bool:
-    return (not x.is_contiguous()
-            and x.is_contiguous(memory_format=torch.channels_last))
-
-
 class Plan(NamedTuple):
     """The kernels' grid for one shape and layout (`launch_plan`)."""
     rows: int        # channels-last: N H W rows (0 on NCHW)
@@ -160,11 +157,6 @@ def launch_plan(shape, channels_last: bool, vec: int, sms: int) -> Plan:
     return Plan(0, 0, 0, 0, split_len, -(-n // split_len), c)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 _TICKETS = {}   # (device index, stream) -> uint32 zeros, as int32
 
 
@@ -195,12 +187,18 @@ def _call(x: torch.Tensor, swish: Optional[str], *others) -> _Call:
     contiguous axis, C channels-last or H W on NCHW, holds whole 16-byte
     vectors at 16-byte aligned addresses, else 1), plan and stream."""
     n, c, h, w = x.shape
-    cl = _channels_last(x)
+    cl = channels_last(x)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x,) + others)
     vec = 4 if (c if cl else h * w) % 4 == 0 and aligned else 1
-    plan = launch_plan(tuple(x.shape), cl, vec, _sms(x.device.index))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    return _Call(x, cl, vec, plan, stream, SWISH[swish])
+    plan = launch_plan(tuple(x.shape), cl, vec,
+                       kernel_library.sm_count(x.device.index))
+    return _Call(x, cl, vec, plan, kernel_library.stream(x.device),
+                 SWISH[swish])
+
+
+# The C entry point's arguments before the stream (`kernel_library.bind`).
+_ARGS = [I32] * 4 + [PTR] * 13 + [I64] + [I32] * 5 + [I64] + [I32] * 2 \
+    + [F32] * 3
 
 
 def _launch(call: _Call, pass_: int, *, g=None, out=None, scale=None,
@@ -214,19 +212,14 @@ def _launch(call: _Call, pass_: int, *, g=None, out=None, scale=None,
                                device=x.device)
         tickets = _tickets(x.device, call.stream, plan.tickets)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    launch = augment_kernels._library("batch_norm_act")
-    with torch.cuda.device(x.device):
-        err = launch(
-            pass_, call.swish, int(call.channels_last), call.vec, ptr(x),
-            ptr(g), ptr(out), ptr(scale), ptr(bias), ptr(running[0]),
-            ptr(running[1]), ptr(stats), ptr(coef), ptr(d_scale),
-            ptr(d_bias), ptr(partials), ptr(tickets), plan.rows, n, h * w,
-            c, plan.tile_vecs, plan.groups, plan.split_len, plan.splits,
-            plan.tiles, momentum, 1.0 - momentum, eps, call.stream)
-    if err != 0:
-        raise RuntimeError("batch_norm_act kernel launch failed (pass {}): "
-                           "cudaError {}".format(pass_, err))
-    batch_norm_act.launches += 1
+    fn = kernel_library.bind("batch_norm_act", "batch_norm_act", _ARGS)
+    kernel_library.launch(
+        "batch_norm_act", fn, x.device, pass_, call.swish,
+        int(call.channels_last), call.vec, ptr(x), ptr(g), ptr(out),
+        ptr(scale), ptr(bias), ptr(running[0]), ptr(running[1]), ptr(stats),
+        ptr(coef), ptr(d_scale), ptr(d_bias), ptr(partials), ptr(tickets),
+        plan.rows, n, h * w, c, plan.tile_vecs, plan.groups, plan.split_len,
+        plan.splits, plan.tiles, momentum, 1.0 - momentum, eps)
 
 
 def _forward_kernel(x, scale, bias, running_mean, running_var, momentum,
@@ -247,7 +240,7 @@ def _backward_kernel(x, grad, stats, swish, need_dx
                                 torch.Tensor]:
     """(dx or None, d_scale, d_bias): one launch, two with dx."""
     c = x.shape[1]
-    fmt = torch.channels_last if _channels_last(x) else \
+    fmt = torch.channels_last if channels_last(x) else \
         torch.contiguous_format
     grad = grad.contiguous(memory_format=fmt)
     d_scale = torch.empty(c, device=x.device)
@@ -329,14 +322,10 @@ def batch_norm_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cuda":
         if x.dtype != torch.float32:
             raise ValueError("the kernels take float32")
-        if not (x.is_contiguous() or _channels_last(x)):
+        if not (x.is_contiguous() or channels_last(x)):
             x = x.contiguous()
         scale, bias = scale.contiguous(), bias.contiguous()
     elif x.device.type != "cpu":
         raise ValueError("batch_norm_act runs on cuda or cpu tensors")
     return BatchNormAct.apply(x, scale, bias, running_mean, running_var,
                               float(momentum), float(eps), swish)
-
-
-batch_norm_act.launches = 0
-

@@ -1,7 +1,7 @@
 """The joint step's loss head: logits at the decoder's resolution resized
 (align corners, bilinear) to the labels' and their mean cross entropy, in
 one hand-written kernel each way (csrc/resized_ce.cu), with its plain
-PyTorch version and launch count.
+PyTorch version.
 
 `resized_ce(low, labels, label_smoothing)` is the mean over the N x H x W
 output pixels of (1 - eps) CE(label) + eps / C sum_c CE(c) of
@@ -13,10 +13,10 @@ output pixels of (1 - eps) CE(label) + eps / C sum_c CE(c) of
     backward the gradient of `low` in `low`'s memory format (NCHW or
     channels-last, each taken as it is; another layout is copied to NCHW
     first). Neither writes an H x W logit, probability or gradient, so the
-    whole batch goes in one launch each way. Both count in
-    `resized_ce.launches`. Their tables (the taps, the units, the tiles)
-    are built on the host once a shape (`resized_ce_plan`) and kept on the
-    card.
+    whole batch goes in one launch each way. Both count under "resized_ce"
+    in `kernel_library.launches`. Their tables (the taps, the units, the
+    tiles) are built on the host once a shape (`resized_ce_plan`) and kept
+    on the card.
   - A CPU tensor takes the plain version: explicit PyTorch for the same
     forward (the interpolation, the log-sum-exp, the label's logit and the
     logits' sum) and the hand-derived backward (softmax - target, then the
@@ -37,7 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mliis_tpu_torch.ops import augment_kernels
+from mliis_tpu_torch.ops import kernel_library
+from mliis_tpu_torch.ops.kernel_library import F32, I32, PTR, channels_last
 
 # csrc/resized_ce.cu's constants.
 THREADS = 256        # kThreads: a block's threads, one an output column
@@ -234,9 +235,10 @@ def resized_ce_backward_reference(low: torch.Tensor, labels: torch.Tensor,
 # The kernels.
 # --------------------------------------------------------------------------
 
-def _channels_last(low: torch.Tensor) -> bool:
-    return (not low.is_contiguous()
-            and low.is_contiguous(memory_format=torch.channels_last))
+# The C entry points' arguments before the stream (`kernel_library.bind`).
+_FORWARD_ARGS = [PTR, I32] * 4 + [PTR] * 7 + [I32] * 6 + [F32, I32]
+_BACKWARD_ARGS = [PTR, I32] + [PTR] * 4 + [I32] + [PTR] * 5 + [I32] * 6 \
+    + [F32, I32]
 
 
 def _forward_kernel(low: torch.Tensor, labels: torch.Tensor, eps: float
@@ -255,21 +257,17 @@ def _forward_kernel(low: torch.Tensor, labels: torch.Tensor, eps: float
     # The count of finished blocks: this call's own, zeroed by the launch.
     done = torch.empty(1, dtype=torch.int32, device=low.device)
     loss = torch.empty((), device=low.device)
-    launch = augment_kernels._library("resized_ce", "resized_ce_forward")
-    with torch.cuda.device(low.device):
-        err = launch(
-            low.data_ptr(), int(_channels_last(low)), labels.data_ptr(),
-            int(labels.dtype == torch.float32), plan.units.data_ptr(),
-            len(plan.units), plan.fwd_tiles.data_ptr(), len(plan.fwd_tiles),
-            plan.yfrac.data_ptr(), plan.xlo.data_ptr(),
-            plan.xfrac.data_ptr(), stats.data_ptr(), partials.data_ptr(),
-            done.data_ptr(), loss.data_ptr(), n, c, h, w, out_h, out_w,
-            augment_kernels._f32(eps), plan.fwd_smem,
-            torch.cuda.current_stream(low.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("resized_ce forward kernel launch failed: "
-                           "cudaError {}".format(err))
-    resized_ce.launches += 1
+    fn = kernel_library.bind("resized_ce", "resized_ce_forward",
+                             _FORWARD_ARGS)
+    kernel_library.launch(
+        "resized_ce", fn, low.device, low.data_ptr(),
+        int(channels_last(low)), labels.data_ptr(),
+        int(labels.dtype == torch.float32), plan.units.data_ptr(),
+        len(plan.units), plan.fwd_tiles.data_ptr(), len(plan.fwd_tiles),
+        plan.yfrac.data_ptr(), plan.xlo.data_ptr(), plan.xfrac.data_ptr(),
+        stats.data_ptr(), partials.data_ptr(), done.data_ptr(),
+        loss.data_ptr(), n, c, h, w, out_h, out_w, kernel_library.f32(eps),
+        plan.fwd_smem)
     return loss, stats
 
 
@@ -281,20 +279,15 @@ def _backward_kernel(low: torch.Tensor, stats: torch.Tensor,
     plan = resized_ce_plan(h, w, out_h, out_w, low.device)
     grad = grad.to(low.device, torch.float32).contiguous()
     out = torch.empty_like(low)
-    launch = augment_kernels._library("resized_ce", "resized_ce_backward")
-    with torch.cuda.device(low.device):
-        err = launch(
-            low.data_ptr(), int(_channels_last(low)), stats.data_ptr(),
-            grad.data_ptr(), out.data_ptr(), plan.bwd_tiles.data_ptr(),
-            len(plan.bwd_tiles), plan.ystart.data_ptr(),
-            plan.yfrac.data_ptr(), plan.xlo.data_ptr(),
-            plan.xstart.data_ptr(), plan.xfrac.data_ptr(), n, c, h, w,
-            out_h, out_w, augment_kernels._f32(eps), plan.bwd_smem,
-            torch.cuda.current_stream(low.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("resized_ce backward kernel launch failed: "
-                           "cudaError {}".format(err))
-    resized_ce.launches += 1
+    fn = kernel_library.bind("resized_ce", "resized_ce_backward",
+                             _BACKWARD_ARGS)
+    kernel_library.launch(
+        "resized_ce", fn, low.device, low.data_ptr(),
+        int(channels_last(low)), stats.data_ptr(), grad.data_ptr(),
+        out.data_ptr(), plan.bwd_tiles.data_ptr(), len(plan.bwd_tiles),
+        plan.ystart.data_ptr(), plan.yfrac.data_ptr(), plan.xlo.data_ptr(),
+        plan.xstart.data_ptr(), plan.xfrac.data_ptr(), n, c, h, w, out_h,
+        out_w, kernel_library.f32(eps), plan.bwd_smem)
     return out
 
 
@@ -340,12 +333,9 @@ def resized_ce(low: torch.Tensor, labels: torch.Tensor,
             or labels.device != low.device:
         raise ValueError("labels must be [N, H, W] on {}".format(low.device))
     if low.device.type == "cuda":
-        if not (low.is_contiguous() or _channels_last(low)):
+        if not (low.is_contiguous() or channels_last(low)):
             low = low.contiguous()
     elif low.device.type != "cpu":
         raise ValueError("resized_ce runs on cuda or cpu tensors")
     return ResizedCrossEntropy.apply(low, labels, float(label_smoothing),
                                      chunk)
-
-
-resized_ce.launches = 0

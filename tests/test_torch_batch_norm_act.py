@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from mliis_tpu_torch.models import layers
 from mliis_tpu_torch.ops import batch_norm_act as bn_act
+from mliis_tpu_torch.ops import kernel_library
 from mliis_tpu_torch.parallel import spatial
 
 SWISHES = [None, "after", "before"]
@@ -170,7 +171,7 @@ def test_layer_kernel_route_matches_the_composition(train, always, swish,
     g = _map(torch.float32, True, 8) - 0.7
     expect = _forward_and_grads(ref, x, g, train, swish)
     _kernel_route_on_cpu(monkeypatch)
-    bn_act.batch_norm_act.launches = 0
+    kernel_library.launches["batch_norm_act"] = 0
     got = _forward_and_grads(bn, x, g, train, swish)
     for name, a, b in zip(("y", "dx", "d_scale", "d_bias"), got, expect):
         assert _gap(a, b) <= TOL32[name], name
@@ -181,7 +182,7 @@ def test_layer_kernel_route_matches_the_composition(train, always, swish,
     else:
         assert torch.equal(bn.mean, before[0])
         assert torch.equal(bn.var, before[1])
-    assert bn_act.batch_norm_act.launches == 0
+    assert kernel_library.launches["batch_norm_act"] == 0
 
 
 @pytest.mark.parametrize("swish", SWISHES, ids=str)
@@ -268,13 +269,13 @@ def test_route_choice(case, monkeypatch):
     assert bn._kernel_route(x, train) is kernel
     if kernel or case in ("spatial_context", "axis_name"):
         return   # a composition that needs a bound mesh or context
-    bn_act.batch_norm_act.launches = 0
+    kernel_library.launches["batch_norm_act"] = 0
     x = _map(torch.float32, True, 15)
     if case.startswith("bfloat16"):
         x = x.to(torch.bfloat16)
     before = (bn.mean.clone(), bn.var.clone())
     y = bn(x, train, swish="after")
-    assert bn_act.batch_norm_act.launches == 0
+    assert kernel_library.launches["batch_norm_act"] == 0
     ref = _layer(C, 14, **kwargs)
     ref.mean.copy_(before[0])
     ref.var.copy_(before[1])

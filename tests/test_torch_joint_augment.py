@@ -24,6 +24,7 @@ from mliis_tpu.ops import augment as jaug
 from mliis_tpu.ops.pallas_augment import \
     fused_light_augment as jax_fused_light_augment
 from mliis_tpu_torch.ops import augment_kernels as tk
+from mliis_tpu_torch.ops import kernel_library
 
 B, H, W = 2, 32, 32
 
@@ -251,8 +252,8 @@ def test_wrapper_checks_inputs():
         tk.fused_light_augment(seeds, images.transpose(1, 2), masks)
     with pytest.raises(ValueError):
         tk.fused_light_augment(seeds, images, masks.to("meta"))
-    before = tk.fused_light_augment.launches
+    before = kernel_library.launches["fused_light_augment"]
     out_i, out_m = tk.fused_light_augment(seeds, images, masks,
                                           prob_original=1.0)
     assert torch.equal(out_i, images) and torch.equal(out_m, masks)
-    assert tk.fused_light_augment.launches == before
+    assert kernel_library.launches["fused_light_augment"] == before

@@ -26,6 +26,7 @@ from mliis_tpu_torch.data.synthetic import make_synthetic_store
 from mliis_tpu_torch.joint import trainer as jt
 from mliis_tpu_torch.meta import inner_loop as il
 from mliis_tpu_torch.models.efficientlab import EfficientLab
+from mliis_tpu_torch.ops import kernel_library
 from mliis_tpu_torch.ops import resized_ce as rce
 from mliis_tpu_torch.utils import profiling
 from portbench import spans
@@ -88,12 +89,12 @@ def test_plain_route_matches_the_chunked_composition(shape, eps, layout,
     n, c, h, w, out_h, out_w = SHAPES[shape]
     low, lab = _inputs(n, c, h, w, out_h, out_w, layout=layout,
                        labels=labels)
-    launches = rce.resized_ce.launches
+    launches = kernel_library.launches["resized_ce"]
     loss, grad = _loss_and_grad(rce.resized_ce, low, lab, eps, 2)
     ref_loss, _ = _loss_and_grad(_composition, low, lab, eps, 2)
     exact_loss, exact_grad = _loss_and_grad(_composition, low.double(), lab,
                                             eps, 2)
-    assert rce.resized_ce.launches == launches
+    assert kernel_library.launches["resized_ce"] == launches
     np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-6)
     np.testing.assert_allclose(float(loss), float(exact_loss), rtol=1e-6)
     assert float((grad.double() - exact_grad).norm()) \

@@ -21,6 +21,7 @@ from mliis_tpu_torch.data.synthetic import make_synthetic_store
 from mliis_tpu_torch.joint import trainer as ttrainer
 from mliis_tpu_torch.meta import inner_loop as til
 from mliis_tpu_torch.ops import augment_kernels
+from mliis_tpu_torch.ops import kernel_library
 from mliis_tpu_torch.utils import checkpoint as tckpt
 from tests.tiny_model import TinySeg
 from tests.torch_tiny_model import TorchTinySeg
@@ -102,10 +103,10 @@ def test_train_step_augments_with_one_launch_route():
     assert "plain version" in logs[0] and "cpu" in logs[0]
     start = {k: v.detach().clone() for k, v in tmodel.named_parameters()}
     opt = til.init_model_state(tmodel, til.OptimizerConfig("sgd")).opt
-    before = augment_kernels.fused_light_augment.launches
+    before = kernel_library.launches["fused_light_augment"]
     opt, loss = tt.train_step(opt, torch.arange(4),
                               torch.arange(4, dtype=torch.int32), 0.05)
-    assert augment_kernels.fused_light_augment.launches == before
+    assert kernel_library.launches["fused_light_augment"] == before
     assert bool(torch.isfinite(loss))
     assert any(not torch.equal(v, start[k])
                for k, v in tmodel.named_parameters())

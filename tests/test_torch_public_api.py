@@ -22,7 +22,7 @@ from mliis_tpu_torch.data import manifests as tman
 from mliis_tpu_torch.data import native_loader as tnative
 from mliis_tpu_torch.data import tfrecord as ttfr
 from mliis_tpu_torch.models import efficientlab as tlab
-from mliis_tpu_torch.ops import augment_kernels
+from mliis_tpu_torch.ops import kernel_library
 from mliis_tpu_torch.ops import meta_math as tmm
 from mliis_tpu_torch.ops import metrics as tmet
 
@@ -171,8 +171,8 @@ def test_package_data_names_every_file_the_port_reads():
     names = {p.name for p in needed}
     assert {"fss_train_set.txt", "fss_test_set.txt",
             "fp-k_test_set.txt"} <= names
-    assert {s + ".cu" for s in augment_kernels.KERNEL_SOURCES} <= names
-    assert set(augment_kernels._HEADERS) <= names
+    assert {f for s in kernel_library.sources()
+            for f in kernel_library.source_files(s)} <= names
     missing = [str(p.relative_to(ROOT)) for p in needed
                if not _covered(p, data)]
     assert not missing, missing

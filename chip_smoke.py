@@ -59,6 +59,20 @@ its phases, one line each (or a few):
      with a cold L2 and the composition eager, and summed over the layers
      as a step runs them, beside the bound (8 float32 passes over each
      input at 3.35 TB/s).
+  4d. kernel[depthwise_conv]: the model's depthwise conv kernels (one
+     launch each way, the SAME padding read in place) against the plain
+     version in float64 on the card and against the library route they
+     replaced (`F.pad` + `F.conv2d`, TF32 off) at every depthwise input of
+     the b3 and b0 joint cells' models (b3: [64, 40 and 24, 150, 150] k 3,
+     [64, 144, 150, 150] k 3 stride 2, ..., [64, 816, 19, 19] k 5) and at
+     two small maps whose channels are no multiple of 8 and of 4: y, dx and
+     dw within DW_Y_BAR / DW_DX_BAR / DW_W_BAR of float64, y and dx
+     channels-last, two runs bit-identical, one launch each way. Then
+     every depthwise input of both models is timed, forward and backward
+     apart, with a cold L2, beside the bound (x read and y written; x and
+     dy read and dx written) and the library's eager time, summed over the
+     layers as a step runs them; then the host's microseconds a forward
+     and backward of a small depthwise `Conv2d` on each route.
   A kernel's time is the device time of a launch, from a CUDA graph of
   many launches: `cold_ms` with a cold L2 (the launches rotate through
   copies of the input, at least 2 x 50 MB apart, and keep every output),
@@ -96,7 +110,9 @@ its phases, one line each (or a few):
      x 10 images on the card), EfficientLab-b0 rsd=(2,) in float32, 224^2,
      batch 64, SGD + l2 + augmentation, 12 steps and 2 val batches.
      `fused_light_augment` must be launched exactly 12 times, `resized_ce`
-     24 (a forward and a backward a step) and no other kernel, the params
+     24 (a forward and a backward a step), `batch_norm_act` 4 a batch norm
+     a step, `depthwise_conv` 11 a step and a validation forward and
+     `depthwise_conv_grad` 11 a step, and no other kernel, the params
      must be finite and changed, and the checkpoint
      must be in flax layout and read back through `restore_checkpoint`.
      Prints the store's build seconds, steps/s over the last 6 steps and
@@ -236,7 +252,17 @@ Every float32 path on the card runs the model's batch norms through
 4 launches a layer, an eval-mode forward 2 a layer of the skip decoder's
 (which normalize by the batch in every mode), nothing where the running
 moments are taken, in bf16, under sync-BN or a spatial context. Every
-phase's launch counts include them, derived the same way.
+phase's launch counts include them, derived the same way. Every float32
+path runs a depthwise conv whose input is a channels-last map through
+`depthwise_conv` (the backbone's, wherever its input is NHWC in memory,
+as the joint path's and the evaluations' are; an augmented meta step's
+images are planar, so its backbone runs NCHW on cuDNN): `read_launches`
+holds its forward and backward launches, in every phase, to one a
+depthwise conv of each backbone and skip-decoder unit that ran on that
+route and one more of each that kept its graph, counted as the model runs;
+the `joint` phase derives them from its flags besides (11 forward
+launches a step and a validation chunk, 11 backward a step); none in
+bf16 or under a spatial context.
 Then the `kernels` JSON line (each kernel's launches on the path it
 carries, and on every path; `ms`, `cold_ms` and `bound_share` at the main
 path's size, every size's beside them), the card's name and power limit
@@ -397,22 +423,85 @@ def cuda_ms(fn, reps):
 # counted and checked.
 KERNELS = ("full_pass", "cheap_pass", "fused_light_augment", "resized_ce",
            "batch_norm_act")
+# The depthwise conv's forward and backward launches, held by
+# `read_launches` to the depthwise convs the model ran (`_DW_SEEN`).
+DW_KERNELS = ("depthwise_conv", "depthwise_conv_grad")
+# Depthwise convs since the last reset, counted as the model runs them
+# (`_watch_depthwise`): "forward", of every backbone (its MBConv blocks')
+# and skip-decoder unit (`_SepConv`, one) whose input is a float32
+# channels-last map on the card, with no spatial context and not traced;
+# "backward", of those that keep the autograd graph.
+_DW_SEEN = {"forward": 0, "backward": 0}
+
+
+def _watch_depthwise():
+    """`EfficientNetFeatures.forward` and `_SepConv.forward` wrapped once
+    to count into _DW_SEEN the depthwise convs that `layers.Conv2d` sends
+    to `depthwise_conv` (a float32 channels-last CUDA map, which the
+    backbone's convs and batch norms keep from its input on)."""
+    import functools
+    import torch
+    from mliis_tpu_torch.models.efficientlab import _SepConv
+    from mliis_tpu_torch.models.efficientnet import EfficientNetFeatures
+    from mliis_tpu_torch.ops import kernel_library
+    from mliis_tpu_torch.parallel import spatial
+
+    def watch(owner, convs):
+        forward = owner.forward
+        if getattr(forward, "watched", False):
+            return
+
+        @functools.wraps(forward)
+        def watched(self, x, *args, **kwargs):
+            if (x.is_cuda and x.dtype == torch.float32
+                    and kernel_library.channels_last(x)
+                    and spatial.current() is None
+                    and not torch.compiler.is_compiling()):
+                n = convs(self)
+                _DW_SEEN["forward"] += n
+                if torch.is_grad_enabled():
+                    _DW_SEEN["backward"] += n
+            return forward(self, x, *args, **kwargs)
+
+        watched.watched = True
+        owner.forward = watched
+
+    watch(EfficientNetFeatures, dw_layers)
+    watch(_SepConv, lambda m: 1)
 
 
 def reset_launches():
-    """Every kernel wrapper's launch count set to 0."""
+    """Every kernel wrapper's launch count and _DW_SEEN set to 0."""
     from mliis_tpu_torch.ops import kernel_library
+    _watch_depthwise()
     kernel_library.launches.clear()
+    _DW_SEEN.update(forward=0, backward=0)
+
+
+def read_dw_launches():
+    """{depthwise_conv, depthwise_conv_grad: launches since the last
+    reset}."""
+    from mliis_tpu_torch.ops import kernel_library
+    return {name: kernel_library.launches[name] for name in DW_KERNELS}
 
 
 def read_launches():
     """{kernel: launches since the last reset}, for every one of KERNELS;
-    a launch counted under another name raises."""
+    a launch counted under another name raises, and so do depthwise conv
+    launches other than one a depthwise conv of each backbone and skip
+    decoder unit that ran on the route (`_DW_SEEN`), and one more a conv
+    of each of those that kept its graph (its backward)."""
     from mliis_tpu_torch.ops import kernel_library
-    unknown = set(kernel_library.launches) - set(KERNELS)
+    unknown = set(kernel_library.launches) - set(KERNELS) - set(DW_KERNELS)
     if unknown:
         raise AssertionError("launches of kernels not in KERNELS: {}".format(
             sorted(unknown)))
+    dw = read_dw_launches()
+    seen = {"depthwise_conv": _DW_SEEN["forward"],
+            "depthwise_conv_grad": _DW_SEEN["backward"]}
+    if dw != seen:
+        raise AssertionError("depthwise conv launches {} against the "
+                             "depthwise convs run {}".format(dw, seen))
     return {name: kernel_library.launches[name] for name in KERNELS}
 
 
@@ -1145,6 +1234,12 @@ def bn_layers(model, always_batch_stats=False) -> int:
                for m in model.modules())
 
 
+def dw_layers(model) -> int:
+    """The model's backbone depthwise convs, one an MBConv block."""
+    from mliis_tpu_torch.models.efficientnet import MBConvBlock
+    return sum(isinstance(m, MBConvBlock) for m in model.modules())
+
+
 def bn_launches(model, steps, eval_forwards=0):
     """`batch_norm_act` launches of a float32 run on the card: each
     training step runs every batch norm forward and backward (4 launches a
@@ -1371,6 +1466,273 @@ def phase_bn_kernel(dev):
     return dict({"name": "batch_norm_act", "route": "cuda",
                  "source": "mliis_tpu_torch/csrc/batch_norm_act.cu",
                  "replaces": None, "steps": steps, **usage},
+                ms=b3["kernel_ms"], cold_ms=b3["kernel_ms"],
+                plain_ms=b3["library_ms"], bound_ms=b3["bound_ms"],
+                bound_share=b3["bound_share"], max_abs_err=worst_k,
+                library_max_err=worst_l)
+
+
+# The `dw_kernel` phase's bars, shares of the float64 value's largest
+# magnitude: y and dx sum 9 or 25 float32 products a value; dw sums N Ho Wo
+# products a tap (float32 within a block, double across blocks).
+DW_Y_BAR, DW_DX_BAR, DW_W_BAR = 2e-6, 2e-6, 2e-5
+# Maps the joint cells do not have: channels that are no multiple of 8
+# (a last slice partly masked) and no multiple of 4 (4-byte copies), odd
+# planes.
+DW_ODD_SHAPES = (((4, 20, 17, 17), 5, 2), ((4, 6, 9, 10), 3, 1))
+
+
+def dw_inputs(dev, backbone, size, batch=64):
+    """[(shape, k, stride)] of every depthwise conv's input of the joint
+    cell's model (EfficientLab on `backbone`, rsd (2,), 1001 channels) in a
+    training forward at `batch` x size^2, in the order they run."""
+    import torch
+    from mliis_tpu_torch.models.efficientlab import EfficientLab
+    from mliis_tpu_torch.models.layers import Conv2d
+    model = EfficientLab(n_classes=1000, feature_extractor_name=backbone,
+                         rsd=(2,), final_layer_dropout_rate=0.0).to(dev)
+    seen = []
+
+    def hook(module, args):
+        if module.groups > 1:
+            seen.append((tuple(args[0].shape), module.kernel_size,
+                         module.stride))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, Conv2d)]
+    images = 255.0 * torch.rand(batch, size, size, 3, device=dev)
+    with torch.no_grad():
+        model(images, train=True, upsample=False)
+    for h in handles:
+        h.remove()
+    del model, images
+    torch.cuda.empty_cache()
+    return seen
+
+
+def _dw_maps(dev, shape, k, stride):
+    """x (channels-last, off zero as a swish's output), weight, dy and the
+    SAME padding at one input shape."""
+    import torch
+    from mliis_tpu_torch.models.layers import same_padding
+    n, c, h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(sum(shape) + 10 * k
+                                                  + stride)
+    x = (torch.randn(shape, generator=gen, device=dev) + 0.3).contiguous(
+        memory_format=torch.channels_last)
+    weight = torch.randn(c, 1, k, k, generator=gen, device=dev) / k
+    g = torch.randn(n, c, -(-h // stride), -(-w // stride), generator=gen,
+                    device=dev).contiguous(memory_format=torch.channels_last)
+    padding = (same_padding(h, k, stride), same_padding(w, k, stride))
+    return x, weight, g, padding
+
+
+def _dw_library(x, weight, g, stride, padding):
+    """(y, dx, dw) of the route the kernels replaced, `F.pad` + `F.conv2d`
+    under autograd, float32 with TF32 off."""
+    import torch
+    import torch.nn.functional as F
+    (pt, pb), (pl, pr) = padding
+    xr = x.detach().requires_grad_(True)
+    wr = weight.detach().requires_grad_(True)
+    y = F.conv2d(F.pad(xr, (pl, pr, pt, pb)), wr, stride=stride,
+                 groups=x.shape[1])
+    return (y.detach(),) + torch.autograd.grad(y, (xr, wr), g)
+
+
+@contextlib.contextmanager
+def _tf32_off():
+    import torch
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def _dw_check(dev, shape, k, stride):
+    """The kernels (through `depthwise_conv`) against the plain version in
+    float64 on the card, and the library against it too, at one shape; the
+    kernels twice, bit for bit, one launch each way. Returns the kernels'
+    worst gap and the library's."""
+    import torch
+    from mliis_tpu_torch.ops import depthwise_conv as dw
+    x, weight, g, padding = _dw_maps(dev, shape, k, stride)
+    runs = []
+    for _ in range(2):
+        reset_launches()
+        xr = x.clone().requires_grad_(True)
+        wr = weight.clone().requires_grad_(True)
+        y = dw.depthwise_conv(xr, wr, stride, padding)
+        grads = torch.autograd.grad(y, (xr, wr), g)
+        launches = read_dw_launches()
+        runs.append((y.detach(),) + grads)
+        del xr, wr, y, grads
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    in_format = all(t.is_contiguous(memory_format=torch.channels_last)
+                    for t in runs[0][:2])
+    x64, w64, g64 = x.double(), weight.double(), g.double()
+    truth = (dw.depthwise_conv_reference(x64, w64, stride, padding),) + \
+        dw.depthwise_conv_backward_reference(x64, w64, g64, stride, padding)
+    del x64, w64, g64
+    with _tf32_off():
+        library = _dw_library(x, weight, g, stride, padding)
+
+    def gaps(got):
+        return [float((a.double() - b).abs().max() / b.abs().max())
+                for a, b in zip(got, truth)]
+    k_gaps, l_gaps = gaps(runs[0]), gaps(library)
+    bars = (DW_Y_BAR, DW_DX_BAR, DW_W_BAR)
+    ok = (same and in_format
+          and launches == {"depthwise_conv": 1, "depthwise_conv_grad": 1}
+          and all(a <= b for a, b in zip(k_gaps, bars)))
+    log("dw_kernel[check] {} k {} stride {} padding {}: gaps to float64 (y, "
+        "dx, dw) kernels {} | library {} | bars {} | bit-identical twice "
+        "{} | channels-last {} | launches {}".format(
+            list(shape), k, stride, padding,
+            ["{:.3g}".format(v) for v in k_gaps],
+            ["{:.3g}".format(v) for v in l_gaps], bars, same, in_format,
+            launches))
+    if not ok:
+        raise AssertionError("depthwise_conv disagrees at {} k {} stride "
+                             "{}".format(shape, k, stride))
+    del truth, library, runs
+    torch.cuda.empty_cache()
+    return max(k_gaps), max(l_gaps)
+
+
+def _dw_times(dev, shape, k, stride):
+    """(forward's cold ms, backward's cold ms, library's ms) at one input:
+    the kernels from CUDA graphs with a cold L2, the library's forward and
+    backward eager (TF32 off)."""
+    import torch
+    from mliis_tpu_torch.ops import depthwise_conv as dw
+    x, weight, g, padding = _dw_maps(dev, shape, k, stride)
+    xv, yv = x.numel(), g.numel()
+    reps = max(3, min(20, int(4e9 / (4 * xv))))
+    fwd, _ = cold_graph_ms(
+        lambda a, b: dw._forward_kernel(a, b, stride, padding), (x, weight),
+        4 * (xv + yv), reps)
+    bwd, _ = cold_graph_ms(
+        lambda a, b, c: dw._backward_kernel(a, b, c, stride, padding, True),
+        (x, weight, g), 4 * (2 * xv + yv), reps)
+    with _tf32_off():
+        library = cuda_ms(lambda: _dw_library(x, weight, g, stride,
+                                              padding), 3)
+    del x, weight, g
+    torch.cuda.empty_cache()
+    return fwd, bwd, library
+
+
+def _dw_host_us(dev, reps=200):
+    """Host microseconds a forward and backward of one small depthwise
+    `Conv2d` ([4, 16, 8, 8] channels-last, k 3) on the kernels' route and
+    on `F.pad` + `F.conv2d`, from the wall of `reps` calls ended by one
+    sync: at this size the card waits on the host."""
+    import torch
+    from mliis_tpu_torch.models import layers
+    conv = layers.Conv2d(16, 16, 3, groups=16, use_bias=False,
+                         depthwise_init=True).to(dev)
+    x = torch.randn(4, 16, 8, 8, device=dev).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    g = torch.randn(4, 16, 8, 8, device=dev).contiguous(
+        memory_format=torch.channels_last)
+
+    def call():
+        torch.autograd.grad(conv(x), (x, conv.kernel), g)
+
+    out = {}
+    route = layers.Conv2d._kernel_route
+    for name in ("kernels", "library", "kernels_again", "library_again"):
+        if name.startswith("library"):
+            layers.Conv2d._kernel_route = lambda self, x, k, g: False
+        try:
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+            out[name] = 1e6 * (time.perf_counter() - t0) / reps
+        finally:
+            layers.Conv2d._kernel_route = route
+    return out
+
+
+def phase_dw_kernel(dev):
+    """`depthwise_conv` against float64 and the library route it replaced
+    (`F.pad` + `F.conv2d`) at every depthwise input of the b3 and b0 joint
+    cells' models and at DW_ODD_SHAPES (`_dw_check`); then every depthwise
+    input of each model timed, forward and backward, the kernels with a
+    cold L2 and the library eager, summed over the model's layers as a
+    step runs them, beside the bound (x read and y written forward; x and
+    dy read and dx written backward, at 3.35 TB/s); then the host's cost
+    of a small call on each route."""
+    import torch
+    from mliis_tpu_torch.models.layers import same_padding
+    from mliis_tpu_torch.ops import depthwise_conv as dw
+    from mliis_tpu_torch.ops import kernel_library
+    usage = BUILD_USAGE.get("depthwise_conv", {})
+    sms = kernel_library.sm_count(dev.index)
+    worst_k, worst_l = 0.0, 0.0
+    models = {tag: dw_inputs(dev, backbone, size)
+              for tag, backbone, size in BN_MODELS}
+    shapes = sorted({key for inputs in models.values() for key in inputs},
+                    key=lambda key: -math.prod(key[0]))
+    for shape, k, stride in shapes + list(DW_ODD_SHAPES):
+        a, b = _dw_check(dev, shape, k, stride)
+        worst_k, worst_l = max(worst_k, a), max(worst_l, b)
+    steps = {}
+    for tag, inputs in models.items():
+        timed = {key: _dw_times(dev, *key) for key in set(inputs)}
+        fwd_ms = sum(timed[key][0] for key in inputs)
+        bwd_ms = sum(timed[key][1] for key in inputs)
+        library_ms = sum(timed[key][2] for key in inputs)
+
+        def bound(key):
+            (n, c, h, w), _, s = key
+            out = n * c * -(-h // s) * -(-w // s)
+            return (1e3 * 4 * (n * c * h * w + out) / H100_BYTES_PER_S,
+                    1e3 * 4 * (2 * n * c * h * w + out) / H100_BYTES_PER_S)
+
+        bound_ms = sum(sum(bound(key)) for key in inputs)
+        for key in sorted(timed, key=lambda kk: -math.prod(kk[0])):
+            f, bw, lib = timed[key]
+            bf, bb = bound(key)
+            (n, c, h, w), k, s = key
+            pad = (same_padding(h, k, s)[0], same_padding(w, k, s)[0])
+            plans = [dw.launch_plan(key[0], k, s, *pad, b, sms)
+                     for b in (False, True)]
+            log("dw_kernel[{}] {} k {} stride {} x{}: cold_ms forward "
+                "{:.4f} ({:.1%} of its bound {:.4f}), backward {:.4f} "
+                "({:.1%} of {:.4f}) | library {:.4f} ms | plans (slice, "
+                "tile) {}".format(
+                    tag, list(key[0]), k, s, inputs.count(key), f, bf / f,
+                    bf, bw, bb / bw, bb, lib,
+                    [(p.cs, p.tile_h, p.tile_w) for p in plans]))
+        kernel_ms = fwd_ms + bwd_ms
+        log("dw_kernel[{}]: {} depthwise convs | kernels {:.3f} ms a step "
+            "(forward {:.3f}, backward {:.3f}; {:.1%} of the bound {:.3f} "
+            "ms) | library {:.3f} ms a step | {} registers, {} B "
+            "spilled".format(tag, len(inputs), kernel_ms, fwd_ms, bwd_ms,
+                             bound_ms / kernel_ms, bound_ms, library_ms,
+                             usage.get("registers"),
+                             usage.get("spill_bytes")))
+        steps[tag] = dict(layers=len(inputs), kernel_ms=kernel_ms,
+                          forward_ms=fwd_ms, backward_ms=bwd_ms,
+                          library_ms=library_ms, bound_ms=bound_ms,
+                          bound_share=bound_ms / kernel_ms)
+    host = _dw_host_us(dev)
+    log("dw_kernel[host]: us a forward and backward of a [4, 16, 8, 8] "
+        "depthwise Conv2d, in turns: {}".format(
+            {k: round(v, 1) for k, v in host.items()}))
+    b3 = steps["b3"]
+    return dict({"name": "depthwise_conv", "route": "cuda",
+                 "source": "mliis_tpu_torch/csrc/depthwise_conv.cu",
+                 "replaces": None, "steps": steps, "host_us": host,
+                 **usage},
                 ms=b3["kernel_ms"], cold_ms=b3["kernel_ms"],
                 plain_ms=b3["library_ms"], bound_ms=b3["bound_ms"],
                 bound_share=b3["bound_share"], max_abs_err=worst_k,
@@ -1637,6 +1999,7 @@ JOINT_ARGV = ["--synthetic", "--synthetic_tasks", "1000", "--image_size",
               "12", "--eval_interval", "1", "--val_batches", "2", "--seed",
               "0"]
 JOINT_STEPS = 12
+JOINT_VAL_BATCHES = 2
 
 
 class _Tee:
@@ -1664,6 +2027,7 @@ def phase_joint(dev):
     import numpy as np
     import torch
     from mliis_tpu_torch.cli import joint_train
+    from mliis_tpu_torch.joint import trainer as jt
     from mliis_tpu_torch.models.efficientlab import EfficientLab
     from mliis_tpu_torch.utils import checkpoint as ckpt
     workdir = tempfile.mkdtemp(prefix="joint_smoke_")
@@ -1680,12 +2044,20 @@ def phase_joint(dev):
         wall = time.time() - t0
         launches = read_launches()
         # The validation batches normalize by the running moments: no
-        # batch_norm_act launch.
+        # batch_norm_act launch. Every step and every validation chunk's
+        # forward (under 2^31 logits a chunk) launches the depthwise conv
+        # once a backbone depthwise conv, every step's backward once more.
         init = EfficientLab(n_classes=1000, rsd=(2,),
                             final_layer_dropout_rate=0.0)
         expect = expected(fused_light_augment=JOINT_STEPS,
                           resized_ce=2 * JOINT_STEPS,
                           batch_norm_act=4 * bn_layers(init) * JOINT_STEPS)
+        val_forwards = JOINT_VAL_BATCHES * -(-64 // jt._chunk(
+            64, init.n_output_channels, 224, 224))
+        launches.update(read_dw_launches())
+        expect.update(
+            depthwise_conv=dw_layers(init) * (JOINT_STEPS + val_forwards),
+            depthwise_conv_grad=dw_layers(init) * JOINT_STEPS)
         peak = torch.cuda.max_memory_allocated(dev)
         out = "".join(tee.parts)
         store_s = float(re.search(r"built in ([0-9.]+) s", out).group(1))
@@ -3718,7 +4090,7 @@ def _drive(dev):
     run(phase_build)
     entries = [run(phase_kernel, dev), run(phase_cheap_kernel, dev),
                run(phase_light_kernel, dev), run(phase_head_kernel, dev),
-               run(phase_bn_kernel, dev)]
+               run(phase_bn_kernel, dev), run(phase_dw_kernel, dev)]
     run(phase_agree, dev)
     run(phase_agree_joint, dev)
     by_path = {"slice": run(phase_slice, dev)}
@@ -3764,10 +4136,11 @@ def main() -> int:
     # the joint run for fused_light_augment; every path's counts beside.
     main_path = {"full_pass": "slice", "cheap_pass": "eval_split",
                  "fused_light_augment": "joint", "resized_ce": "joint",
-                 "batch_norm_act": "joint"}
+                 "batch_norm_act": "joint", "depthwise_conv": "joint"}
     for e in entries:
         e["launches"] = by_path[main_path[e["name"]]][e["name"]]
-        e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}
+        e["launches_by_path"] = {p: c.get(e["name"])
+                                 for p, c in by_path.items()}
         for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(e[key]):
                 raise AssertionError("{} of {} is not finite".format(

@@ -27,6 +27,14 @@ What differs from the obvious `nn.Conv2d` / `nn.BatchNorm2d`:
     (`ops/batch_norm_act`); everything else (the CPU, bf16, sync-BN, a
     spatial context, the running moments, a traced forward) takes the
     composition of PyTorch ops;
+  - a depthwise `Conv2d` (groups == in == out channels) of k 3 or 5,
+    dilation 1, stride 1 or 2 and no bias, over a float32 channels-last
+    CUDA map with no spatial context and no tracer (the backbone's
+    wherever its input is NHWC in memory), goes through one hand-written
+    kernel each way, which reads the SAME padding in place
+    (`ops/depthwise_conv`); every other conv (the dense and 1x1 convs,
+    bf16, NCHW maps, a spatial context, a traced forward) pads with
+    `F.pad` and runs `F.conv2d`;
   - under a bound spatial context (`parallel/spatial.py`, the H axis split
     over ranks) a conv with a window (k > 1 or stride > 1) fetches the
     input rows its owned output rows read and pads only W, a batch norm
@@ -62,6 +70,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mliis_tpu_torch.ops import batch_norm_act as bn_act
+from mliis_tpu_torch.ops import depthwise_conv as dw_conv
+from mliis_tpu_torch.ops import kernel_library
 from mliis_tpu_torch.parallel import mesh as mesh_lib
 from mliis_tpu_torch.parallel import spatial
 
@@ -195,17 +205,36 @@ class Conv2d(nn.Module):
         pw = same_padding(x.shape[-1], k, s, d)
         dtype = self.compute_dtype or torch.result_type(x, self.kernel)
         x = x.to(dtype)
-        if any(ph + pw):
-            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
         kernel, bias, groups = self.kernel, self.bias, self.groups
         t = _TASKS.get()
         if t is not None:   # stacked [T, Cout, Cin/g, k, k]: T x the groups
             kernel = kernel.reshape((-1,) + tuple(kernel.shape[2:]))
             bias = None if bias is None else bias.reshape(-1)
             groups *= t
+        if self._kernel_route(x, kernel, groups):
+            return dw_conv.depthwise_conv(x, kernel.to(dtype), s, (ph, pw))
+        if any(ph + pw):
+            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
         bias = None if bias is None else bias.to(dtype)
         return F.conv2d(x, kernel.to(dtype), bias, stride=s, dilation=d,
                         groups=groups)
+
+    def _kernel_route(self, x: torch.Tensor, kernel: torch.Tensor,
+                      groups: int) -> bool:
+        """Whether the conv goes through `ops/depthwise_conv`'s kernels: a
+        depthwise conv (groups == in == out channels; under a task axis
+        the folded T*C) of k 3 or 5, dilation 1, stride 1 or 2 and no
+        bias, over a float32 channels-last CUDA map (after the compute
+        cast), with no spatial context, and not traced (the kernels read
+        memory)."""
+        return (x.device.type == "cuda" and x.dtype == torch.float32
+                and groups == x.shape[1] == kernel.shape[0]
+                and kernel.shape[1] == 1 and self.bias is None
+                and self.kernel_size in dw_conv.KERNEL_SIZES
+                and self.stride in dw_conv.STRIDES and self.dilation == 1
+                and kernel_library.channels_last(x)
+                and spatial.current() is None
+                and not torch.compiler.is_compiling())
 
     def _forward_sharded(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's output rows of the conv of an H-sharded map: the

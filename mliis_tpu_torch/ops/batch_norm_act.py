@@ -24,7 +24,7 @@ m and the biased v. Its backward is the exact gradient of that formula
     Any other device raises.
 
 The kernels keep a ticket counter a channel tile on each (device, stream),
-zeroed here once and left at zero by every launch (`_tickets`).
+zeroed here once and left at zero by every launch (`tickets`).
 """
 import functools
 from typing import NamedTuple, Optional, Tuple
@@ -160,9 +160,10 @@ def launch_plan(shape, channels_last: bool, vec: int, sms: int) -> Plan:
 _TICKETS = {}   # (device index, stream) -> uint32 zeros, as int32
 
 
-def _tickets(device: torch.device, stream: int, count: int) -> torch.Tensor:
+def tickets(device: torch.device, stream: int, count: int) -> torch.Tensor:
     """The stream's ticket counters, at least `count`, all 0 between
-    launches (the kernels leave them so)."""
+    launches (the kernels leave them so). Shared by every kernel that
+    takes tickets: launches on one stream run one after another."""
     key = (device.index, stream)
     held = _TICKETS.get(key)
     if held is None or held.numel() < count:
@@ -206,18 +207,18 @@ def _launch(call: _Call, pass_: int, *, g=None, out=None, scale=None,
             d_scale=None, d_bias=None, momentum=0.0, eps=0.0):
     x, plan = call.x, call.plan
     n, c, h, w = x.shape
-    partials = tickets = None
+    partials = held = None
     if pass_ in (STATS, REDUCE):
         partials = torch.empty(plan.splits * 2 * c, dtype=torch.float64,
                                device=x.device)
-        tickets = _tickets(x.device, call.stream, plan.tickets)
+        held = tickets(x.device, call.stream, plan.tickets)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = kernel_library.bind("batch_norm_act", "batch_norm_act", _ARGS)
     kernel_library.launch(
         "batch_norm_act", fn, x.device, pass_, call.swish,
         int(call.channels_last), call.vec, ptr(x), ptr(g), ptr(out),
         ptr(scale), ptr(bias), ptr(running[0]), ptr(running[1]), ptr(stats),
-        ptr(coef), ptr(d_scale), ptr(d_bias), ptr(partials), ptr(tickets),
+        ptr(coef), ptr(d_scale), ptr(d_bias), ptr(partials), ptr(held),
         plan.rows, n, h * w, c, plan.tile_vecs, plan.groups, plan.split_len,
         plan.splits, plan.tiles, momentum, 1.0 - momentum, eps)
 
